@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU, and hold its
+hand-written kernels against their plain PyTorch versions.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a host with one CUDA card; it imports
+the port from ``src/`` and nothing of JAX. Phases, each printing lines of
+its own:
+
+1. environment: the card's name and power limit (``nvidia-smi``), torch and
+   CUDA versions, TF32 switched off for matmuls and convolutions, and the
+   kernels' build (``nvcc`` into ``build/kernels/``, one process per
+   source, all started together);
+2. K1, the fused masked-Adam kernel, against its plain version at the main
+   path's shape (8 sessions x 334,405 float32 coordinates, sessions at
+   different step counts) and on two mixed-dtype stacks: p, m, v and u
+   must be equal bit for bit; then its time, the plain version's and the
+   bound;
+3. K2, the top-k threshold kernel, against its plain version at the main
+   path's shape and on the JAX package's edge cases (mixed signs, all
+   negative, ties, subnormals, zeros) plus NaN and infinities: threshold
+   bits exact, masks byte-identical (also to a sort's threshold); then its
+   time, the plain version's, ``torch.kthvalue``'s and the bound;
+4. the main path: 8 AMS sessions of the width-4.0 segmentation student on
+   8 seeded synthetic videos at 256x256, batch 8, K=20, gamma=0.05,
+   through 3 fused phases (the first with random masks, then two
+   gradient-guided), deltas encoded, applied by each edge client and
+   scored by mIoU on held-out frames. The kernels' launch counts are set
+   to 0 just before and read just after; afterwards both kernels are held
+   against their plain versions again on the run's real updates and
+   gradients, and each stage of a phase is timed on its own;
+5. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
+   against its plain version, times and bound;
+6. the last line, ``{"ok": true, "device": {...}}``.
+
+Any failed check raises, so the script exits non-zero and prints no
+result; it does so too without CUDA, and when ``src/`` is missing (the
+imports fail).
+"""
+from __future__ import annotations
+
+import gzip
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# the port, from src/ beside this file; the import fails (non-zero exit,
+# no result) in a directory that holds nothing else of the repo
+from repro_torch import tree  # noqa: E402
+from repro_torch.core import selection  # noqa: E402
+from repro_torch.core.batched import stack_trees, train_phases_fused  # noqa: E402
+from repro_torch.core.client import EdgeClient  # noqa: E402
+from repro_torch.core.delta import encode_delta_stack  # noqa: E402
+from repro_torch.core.server import AMSConfig, AMSSession, Task  # noqa: E402
+from repro_torch.data.video import VideoConfig  # noqa: E402
+from repro_torch.device import host_to_device  # noqa: E402
+from repro_torch.kernels import build, stacking  # noqa: E402
+from repro_torch.kernels.masked_adam import ops as adam_ops  # noqa: E402
+from repro_torch.kernels.masked_adam import ref as adam_ref  # noqa: E402
+from repro_torch.kernels.topk_mask import ops as topk_ops  # noqa: E402
+from repro_torch.kernels.topk_mask import ref as topk_ref  # noqa: E402
+from repro_torch.metrics.miou import miou  # noqa: E402
+from repro_torch.models.seg.student import SegConfig, make_student, seg_param_count  # noqa: E402
+from repro_torch.sim.seg_world import SegWorld, phi_pixel_loss  # noqa: E402
+
+# data-sheet peaks per card, matched on the name nvidia-smi reports:
+# (substring, device memory bytes/s, float32 FLOP/s outside tensor cores)
+PEAKS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
+         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+
+B, N_PARAMS = 8, 334_405            # main path: sessions, width-4.0 student
+WIDTH, HW = 4.0, 256                # student width, frame height and width
+ADAM = dict(b1=0.9, b2=0.999, eps=1e-8)
+FRAC = 0.05
+
+
+def peaks(name: str):
+    for key, bw, flops in PEAKS:
+        if key in name:
+            return bw, flops
+    raise RuntimeError(f"no data-sheet peaks known for {name!r}")
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """Median CUDA-event time of one call, started with the device idle:
+    what a caller waits for, the wrapper's host work included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Median device time of one call, from ``n`` calls queued back to back
+    behind a spin kernel that keeps the device busy while the host
+    enqueues them, so the host's per-call work hides behind it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(1_000_000)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 1_000_000 / a.elapsed_time(b)
+    spin = int(cycles_per_ms * 2e3 * host_s) + 1
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# K1: fused masked Adam
+# ---------------------------------------------------------------------------
+
+
+def k1_compare(bufs, bc) -> float:
+    """Kernel vs plain on the same buffers; bit-for-bit or raise."""
+    out_k = adam_ops.masked_adam_3d(*bufs, bc, **ADAM)
+    out_r = adam_ref.masked_adam_ref(*bufs, bc, **ADAM)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, k, r in zip(("p", "m", "v", "u"), out_k, out_r):
+        check(k.dtype == r.dtype and k.shape == r.shape, f"K1 {name} dtype/shape")
+        check(torch.equal(k.view(torch.uint8), r.view(torch.uint8)),
+              f"K1 {name} differs from its plain version bit for bit")
+        err = max(err, float((k.float() - r.float()).abs().max()))
+    return err
+
+
+def k1_phase(dev, bw, flops):
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = -(-N_PARAMS // stacking.LANES)
+    shape = (B, rows, stacking.LANES)
+    counts = torch.tensor((0, 1, 5, 19, 20, 39, 40, 100)[:B],
+                          dtype=torch.int32, device=dev)
+    _, bc = adam_ops.bias_correction(counts, lr=1e-3, b1=0.9, b2=0.999)
+    err = 0.0
+    main = None
+    for dts in ((torch.float32,) * 4,
+                (torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32),
+                (torch.float16, torch.float32, torch.float16, torch.float16)):
+        p = torch.randn(shape, generator=g, device=dev).to(dts[0])
+        grad = (torch.randn(shape, generator=g, device=dev) * 1e-2).to(dts[1])
+        m = (torch.randn(shape, generator=g, device=dev) * 1e-3).to(dts[2])
+        v = (torch.rand(shape, generator=g, device=dev) * 1e-4).to(dts[3])
+        mask = torch.rand(shape, generator=g, device=dev) < FRAC
+        bufs = (p, grad, m, v, mask)
+        err = max(err, k1_compare(bufs, bc))
+        print(f"K1 bitwise equal to plain: dtypes {[str(d)[6:] for d in dts]}")
+        if main is None:
+            main = bufs
+    ms = device_ms(lambda: adam_ops.masked_adam_3d(*main, bc, **ADAM))
+    call_ms = time_ms(lambda: adam_ops.masked_adam_3d(*main, bc, **ADAM))
+    plain_ms = device_ms(lambda: adam_ref.masked_adam_ref(*main, bc, **ADAM))
+    numel = main[0].numel()
+    nbytes = numel * (4 * 4 + 1 + 4 * 4) + bc.numel() * 4
+    bound_ms = 1e3 * max(nbytes / bw, 13 * numel / flops)
+    print(f"K1 masked_adam_3d {tuple(shape)}: kernel {ms:.4f} ms on the device "
+          f"({call_ms:.4f} ms per call from idle, wrapper included), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms)
+
+
+# ---------------------------------------------------------------------------
+# K2: top-k threshold bits
+# ---------------------------------------------------------------------------
+
+
+def u_case(case: str, rng, b=3):
+    """The JAX package's top-k edge cases (tests/test_kernel_dispatch.py),
+    plus NaN and infinities."""
+    def leaf(shape):
+        n = int(np.prod(shape))
+        if case == "mixed":
+            x = rng.normal(size=n)
+        elif case == "negatives":
+            x = -np.abs(rng.normal(size=n)) - 0.1
+        elif case == "ties":
+            x = rng.choice([0.5, -0.5, 2.0, -2.0, 0.0], size=n)
+        elif case == "denormals":
+            x = rng.normal(size=n) * 1e-41
+        elif case == "zeros":
+            x = np.zeros(n)
+        elif case == "nan":
+            x = rng.normal(size=n)
+            x[rng.integers(0, n, size=5)] = np.nan
+        else:  # inf
+            x = rng.normal(size=n)
+            x[rng.integers(0, n, size=3)] = np.inf
+            x[rng.integers(0, n, size=3)] = -np.inf
+        return x.reshape(shape).astype(np.float32)
+
+    return {"a": np.stack([leaf((57, 7)) for _ in range(b)]),
+            "b": np.stack([leaf((301,)) for _ in range(b)])}
+
+
+def k2_compare(u_stacked, frac) -> float:
+    """Kernel vs plain threshold bits (exact) and masks (byte-identical,
+    also to each session's solo selection and to a sort's threshold)."""
+    bits, n = topk_ops.abs_bits_buffer(u_stacked)
+    k = topk_ops.selection_count(n, frac)
+    thr_k = topk_ops.topk_threshold_bits(bits, k)
+    thr_r = topk_ref.topk_threshold_bits_ref(bits, k)
+    check(torch.equal(thr_k, thr_r), "K2 threshold bits differ from plain")
+    m_k = selection.stacked_gradient_guided_masks(u_stacked, frac)
+    m_r = topk_ops.masks_from_threshold(u_stacked, thr_r)
+    u_cpu = tree.tree_map(lambda l: l.cpu(), u_stacked)
+    m_cpu = selection.stacked_gradient_guided_masks(u_cpu, frac)
+    for a, b, c in zip(tree.leaves(m_k), tree.leaves(m_r), tree.leaves(m_cpu)):
+        check(torch.equal(a, b), "K2 masks differ from the plain version's")
+        check(torch.equal(a.cpu(), c), "K2 masks differ from the CPU path's")
+    for i in range(thr_k.shape[0]):
+        solo = selection.gradient_guided_mask(
+            tree.tree_map(lambda l: l[i], u_stacked), frac)
+        leaves_i = [l[i] for l in tree.leaves(u_cpu)]
+        thr_s = topk_ref.topk_threshold_sort_ref(leaves_i, k)
+        for a, s, l in zip(tree.leaves(m_k), tree.leaves(solo), leaves_i):
+            check(torch.equal(a[i], s), "K2 solo mask differs from the stacked one")
+            check(torch.equal(a[i].cpu(), l.abs() >= thr_s),
+                  "K2 mask differs from the sort's threshold")
+    tk, tr = thr_k.view(torch.float32), thr_r.view(torch.float32)
+    return float(torch.nan_to_num((tk - tr).abs(), nan=0.0).max())
+
+
+def k2_phase(dev, bw, flops):
+    err = 0.0
+    rng = np.random.default_rng(5)
+    for case in ("mixed", "negatives", "ties", "denormals", "zeros", "nan", "inf"):
+        u = {k: torch.from_numpy(v).to(dev) for k, v in u_case(case, rng).items()}
+        err = max(err, k2_compare(u, 0.07))
+        print(f"K2 exact against plain and sort: case {case}")
+    g = torch.Generator(device=dev).manual_seed(12)
+    u = {"w": torch.randn(B, N_PARAMS, generator=g, device=dev) * 1e-3}
+    err = max(err, k2_compare(u, FRAC))
+    print(f"K2 exact against plain and sort: main shape ({B}, {N_PARAMS})")
+    bits, n = topk_ops.abs_bits_buffer(u)
+    k = topk_ops.selection_count(n, FRAC)
+    ms = device_ms(lambda: topk_ops.topk_threshold_bits(bits, k))
+    call_ms = time_ms(lambda: topk_ops.topk_threshold_bits(bits, k))
+    plain_ms = device_ms(lambda: topk_ref.topk_threshold_bits_ref(bits, k), n=5)
+    absu = u["w"].abs()
+    library_ms = device_ms(lambda: torch.kthvalue(absu, n - k + 1, dim=1), n=5)
+    check(torch.equal(torch.kthvalue(absu, n - k + 1, dim=1).values.view(torch.int32),
+                      topk_ops.topk_threshold_bits(bits, k)),
+          "K2 threshold differs from torch.kthvalue")
+    nbytes = bits.numel() * 4 + B * 4
+    bound_ms = 1e3 * max(nbytes / bw, bits.numel() / flops)
+    print(f"K2 topk_threshold_bits {tuple(bits.shape)} k={k}: kernel {ms:.4f} ms "
+          f"on the device ({call_ms:.4f} ms per call from idle), plain "
+          f"{plain_ms:.4f} ms, torch.kthvalue {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms)
+
+
+# ---------------------------------------------------------------------------
+# the main path
+# ---------------------------------------------------------------------------
+
+
+def main_path(dev):
+    seg = SegConfig(n_classes=5, width=WIDTH)
+    check(seg_param_count(seg) == N_PARAMS, "student size")
+    ams = AMSConfig(batch_size=8, k_iters=20, gamma=FRAC)
+    worlds = [SegWorld.make(VideoConfig(height=HW, width=HW, seed=s), seg)
+              for s in range(B)]
+    p0 = make_student(seg, seed=0, device=dev)
+    sessions = [AMSSession(Task(w.loss_and_grad, phi_pixel_loss), ams, p0, seed=i)
+                for i, w in enumerate(worlds)]
+    clients = [EdgeClient(w.predict, p0) for w in worlds]
+    fps = worlds[0].video.cfg.fps
+
+    def feed(phase):  # 1 frame/s for 10 s, labelled by the oracle teacher
+        idx = [int((10 * phase + j) * fps) for j in range(10)]
+        for s, w in zip(sessions, worlds):
+            f = np.stack([w.video.frame(i)[0] for i in idx])
+            lab = np.stack([w.teacher.label(i) for i in idx])
+            s.receive_labeled(f, lab, 10.0 * phase + 9.0)
+
+    held_out = [int(t * fps) for t in (31.0, 32.5, 34.0, 35.5)]
+    eval_frames = [(host_to_device(np.stack([w.video.frame(i)[0] for i in held_out]), dev),
+                    [w.teacher.label(i) for i in held_out]) for w in worlds]
+
+    def edge_miou():
+        scores = []
+        for c, w, (x, labs) in zip(clients, worlds, eval_frames):
+            pred = c.infer(x).cpu().numpy()
+            scores += [miou(p, lab, 5) for p, lab in zip(pred, labs)]
+        return float(np.mean(scores))
+
+    print(f"main path: {B} sessions x width-{WIDTH} student ({N_PARAMS} params), "
+          f"{HW}x{HW} frames, batch {ams.batch_size}, K={ams.k_iters}, "
+          f"gamma={ams.gamma}; mIoU before training {edge_miou():.4f}")
+    adam_ops.launches = 0
+    topk_ops.launches = 0
+    for phase in range(3):
+        feed(phase)
+        t_now = 10.0 * (phase + 1)
+        before = [tree.leaves(c.active) for c in clients]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        deltas = train_phases_fused(sessions, t_now)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [s.history[-1]["loss"] for s in sessions]
+        check(all(d is not None for d in deltas), "every session trained")
+        check(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+        for s, c, d, old in zip(sessions, clients, deltas, before):
+            c.apply_update(d)
+            check_delta(s, c, d, old, phase)
+        score = edge_miou()
+        check(math.isfinite(score) and 0.0 <= score <= 1.0, f"mIoU {score}")
+        print(f"phase {phase}: {start.elapsed_time(end):.1f} ms on the device "
+              f"clock, {wall:.3f} s wall; losses {[round(x, 4) for x in losses]}; "
+              f"delta bytes {[d.total_bytes for d in deltas]}; "
+              f"selected {[int(d.values.size) for d in deltas]}; edge mIoU {score:.4f}")
+    launches = {"masked_adam_3d": adam_ops.launches,
+                "topk_threshold_bits": topk_ops.launches}
+    print(f"main path launches: {launches}")
+    check(launches["masked_adam_3d"] >= 60, "K1 ran on the main path")
+    check(launches["topk_threshold_bits"] >= 2, "K2 ran on the main path")
+    return sessions, launches
+
+
+def check_delta(s, c, d, old, phase):
+    """The edge holds the server's params, fp16-rounded, where the mask
+    is set, and its previous params elsewhere."""
+    flat_m = np.unpackbits(np.frombuffer(gzip.decompress(d.packed_mask),
+                                         np.uint8))[:d.n_total].astype(bool)
+    check(d.n_total == N_PARAMS, "delta size")
+    sel = int(flat_m.sum())
+    check(sel == d.values.size, "delta values match the mask")
+    if phase > 0:
+        check(sel >= topk_ops.selection_count(N_PARAMS, FRAC), f"top-k selected {sel}")
+    server = np.concatenate([l.detach().cpu().numpy().ravel() for l in tree.leaves(s.params)])
+    edge = np.concatenate([l.cpu().numpy().ravel() for l in tree.leaves(c.active)])
+    prev = np.concatenate([l.cpu().numpy().ravel() for l in old])
+    want = np.where(flat_m, server.astype(np.float16).astype(np.float32), prev)
+    check(np.array_equal(edge, want), "edge params after the delta")
+
+
+def recheck_on_run(dev, sessions):
+    """Both kernels against their plain versions on the run's real data."""
+    u = stack_trees([s.u_prev for s in sessions])
+    err2 = k2_compare(u, FRAC)
+    mask = selection.stacked_gradient_guided_masks(u, FRAC)
+    params = stack_trees([s.params for s in sessions])
+    opt = stack_trees([s.opt_state for s in sessions])
+    rng = np.random.default_rng(0)
+    batches = [s.buffer.sample(rng, s.cfg.batch_size, 30.0) for s in sessions]
+    frames = host_to_device(np.stack([b[0] for b in batches]), dev)
+    labels = host_to_device(np.stack([b[1] for b in batches]), dev)
+    _, grads = torch.func.vmap(sessions[0].task.loss_and_grad)(params, frames, labels)
+    cfg = sessions[0].cfg
+    _, bc = adam_ops.bias_correction(opt.count, lr=cfg.lr, b1=cfg.b1, b2=cfg.b2)
+    plan = stacking.stack_plan(params)
+    err1 = 0.0
+    for group in plan.groups:
+        bufs = [stacking.flatten_group(tree.leaves(t), group, plan.b)
+                for t in (params, grads, opt.m, opt.v, mask)]
+        err1 = max(err1, k1_compare(bufs, bc))
+    print("re-check on the run's real u and gradients: K1 bitwise equal, "
+          "K2 exact")
+    return err1, err2
+
+
+def phase_breakdown(dev, sessions):
+    """Where a fused phase's time goes: each stage of the phase timed on
+    its own, on the run's own state (replay batches drawn from a separate
+    RNG, so no session is disturbed)."""
+    cfg = sessions[0].cfg
+    params = stack_trees([s.params for s in sessions])
+    opt = stack_trees([s.opt_state for s in sessions])
+    u = stack_trees([s.u_prev for s in sessions])
+    mask = selection.stacked_gradient_guided_masks(u, FRAC)
+    rng = np.random.default_rng(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = [[s.buffer.sample(rng, cfg.batch_size, 30.0)
+                for _ in range(cfg.k_iters)] for s in sessions]
+    frames = host_to_device(np.stack([np.stack([b[0] for b in bs])
+                                      for bs in batches], axis=1), dev)
+    labels = host_to_device(np.stack([np.stack([b[1] for b in bs])
+                                      for bs in batches], axis=1), dev)
+    torch.cuda.synchronize()
+    prepare_ms = 1e3 * (time.perf_counter() - t0)
+    vgrad = torch.func.vmap(sessions[0].task.loss_and_grad)
+    grad_ms = time_ms(lambda: vgrad(params, frames[0], labels[0]), reps=5)
+    _, grads = vgrad(params, frames[0], labels[0])
+    adam_ms = time_ms(lambda: adam_ops.masked_adam_stacked(
+        params, grads, opt, mask, lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps))
+    select_ms = time_ms(lambda: selection.stacked_gradient_guided_masks(u, FRAC))
+    encode_ms = time_ms(lambda: encode_delta_stack(params, mask, B), reps=3)
+    k = cfg.k_iters
+    total = prepare_ms + k * (grad_ms + adam_ms) + select_ms + encode_ms
+    print(f"phase breakdown (ms, each stage timed alone): prepare+H2D "
+          f"{prepare_ms:.1f}; {k} x vmapped loss/grad {grad_ms:.2f} = "
+          f"{k * grad_ms:.1f}; {k} x stacked masked Adam (flatten + K1 + "
+          f"views) {adam_ms:.3f} = {k * adam_ms:.2f}; stacked selection "
+          f"{select_ms:.3f}; encode {encode_ms:.1f}; sum {total:.1f}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available; this needs one NVIDIA GPU")
+    # 1. environment
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    print(smi.strip().splitlines()[0])
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    bw, flops = peaks(name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {name}; allow_tf32 matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+          f"{torch.backends.cudnn.allow_tf32}; data-sheet peaks {bw / 1e12} TB/s, "
+          f"{flops / 1e12} TFLOP/s float32")
+    t_build = build.build_all()
+    print(f"build: {t_build:.2f} s for {list(build.SOURCES)} into {build.BUILD_DIR}")
+
+    # 2-3. kernels against their plain versions
+    k1 = k1_phase(dev, bw, flops)
+    k2 = k2_phase(dev, bw, flops)
+
+    # 4. the main path
+    sessions, launches = main_path(dev)
+    err1, err2 = recheck_on_run(dev, sessions)
+    phase_breakdown(dev, sessions)
+
+    # 5. kernels line
+    kernels = [
+        dict(name="masked_adam_3d", route="cuda",
+             source="src/repro_torch/csrc/masked_adam.cu",
+             replaces="src/repro/kernels/masked_adam/masked_adam.py:64",
+             launches=launches["masked_adam_3d"], max_abs_err=max(k1["err"], err1),
+             ms=k1["ms"], kernel_ms=k1["ms"], call_ms=k1["call_ms"],
+             plain_ms=k1["plain_ms"],
+             bound_ms=k1["bound_ms"], bound_by="bytes", library_ms=None),
+        dict(name="topk_threshold_bits", route="cuda",
+             source="src/repro_torch/csrc/topk_mask.cu",
+             replaces="src/repro/kernels/topk_mask/topk_mask.py:50",
+             launches=launches["topk_threshold_bits"],
+             max_abs_err=max(k2["err"], err2), ms=k2["ms"], kernel_ms=k2["ms"],
+             call_ms=k2["call_ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"], bound_by="bytes",
+             library_ms=k2["library_ms"]),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

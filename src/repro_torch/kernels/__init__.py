@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for the serving hot path, for Hopper (sm_90a).
+
+Two kernel families live here, each as ``ops.py`` (the wrapper, with its
+launch counter) + ``ref.py`` (the plain PyTorch version); the CUDA
+sources are in ``repro_torch/csrc/`` and `build` compiles them at first
+use:
+
+* ``masked_adam`` — the fused Algorithm-2 inner update over per-dtype
+  ``(B, rows, 128)`` buffers of a fused session stack;
+* ``topk_mask`` — the exact bit-pattern top-k threshold behind
+  gradient-guided selection.
+
+A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
+tensor it runs the plain version. There is no switch and no fallback.
+"""

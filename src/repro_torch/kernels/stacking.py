@@ -1,0 +1,111 @@
+"""Flatten-and-concatenate plans for stacked (B, ...) parameter trees.
+
+The stacked kernels (masked Adam, bit-pattern top-k) want each session's
+parameters as ONE lane-aligned buffer, ``(B, rows, 128)``, so a whole fused
+group moves through device memory in a single launch instead of one per
+leaf. The flatten is a copy into a zeroed buffer and the unflatten is slice
++ view: both bit-exact re-layouts, so a kernel output unstacks to exactly
+the per-leaf tensors a per-leaf update would have produced. Unflattened
+leaves are views into the kernel's output buffer; nothing is copied back.
+
+A `StackPlan` caches the host-side bookkeeping per shape/dtype struct:
+leaf order grouped by dtype (groups in sorted dtype-name order, leaves in
+flatten order), per-leaf sizes and offsets, and the row count.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import tree
+
+LANES = 128
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy-style name ("float32", "bfloat16", "bool")."""
+    return str(dtype).removeprefix("torch.")
+
+
+class DtypeGroup(NamedTuple):
+    dtype: str            # param dtype name of every leaf in the group
+    indices: tuple        # leaf positions (flatten order) in the source tree
+    sizes: tuple          # per-session flat size of each leaf
+    offsets: tuple        # start of each leaf inside the concat buffer
+    n: int                # per-session valid elements (sum of sizes)
+    rows: int             # ceil(n / LANES) — buffer is (B, rows, LANES)
+
+
+class StackPlan(NamedTuple):
+    b: int                # session-axis length
+    groups: tuple         # DtypeGroup per distinct leaf dtype
+    shapes: tuple         # per-leaf full shapes (B first), flatten order
+    treedef: object
+
+
+_PLANS: dict = {}
+
+
+def stack_plan(stacked) -> StackPlan:
+    """The (cached) flatten/concat plan for a stacked tree whose every leaf
+    carries a leading session axis B."""
+    leaves, treedef = tree.flatten(stacked)
+    if not leaves:
+        raise ValueError("stack_plan needs at least one leaf")
+    key = (treedef, tuple((tuple(l.shape), dtype_name(l.dtype)) for l in leaves))
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    b = int(leaves[0].shape[0])
+    for l in leaves:
+        if l.shape[0] != b:
+            raise ValueError(f"inconsistent session axis: {l.shape[0]} vs {b}")
+    by_dtype: dict[str, list[int]] = {}
+    for i, l in enumerate(leaves):
+        by_dtype.setdefault(dtype_name(l.dtype), []).append(i)
+    groups = []
+    for dt in sorted(by_dtype):
+        idx = tuple(by_dtype[dt])
+        sizes = tuple(leaves[i][0].numel() for i in idx)
+        offsets, off = [], 0
+        for s in sizes:
+            offsets.append(off)
+            off += s
+        rows = -(-off // LANES)  # ceil
+        groups.append(DtypeGroup(dt, idx, sizes, tuple(offsets), off, rows))
+    plan = StackPlan(b, tuple(groups), tuple(tuple(l.shape) for l in leaves),
+                     treedef)
+    _PLANS[key] = plan
+    return plan
+
+
+def flatten_group(leaves, group: DtypeGroup, b: int, transform=None):
+    """Concat a dtype group's leaves into the kernel buffer
+    ``(B, rows, LANES)``, zero-padded past ``group.n``. ``transform`` maps
+    each leaf elementwise before it is written; the padding stays zero.
+    Every (transformed) leaf of the group must share one dtype, which is
+    the buffer's."""
+    parts = []
+    for i in group.indices:
+        l = leaves[i] if transform is None else transform(leaves[i])
+        parts.append(l.reshape(b, -1))
+    dtype = parts[0].dtype
+    if any(p.dtype != dtype for p in parts):
+        raise ValueError(
+            f"dtype group {group.dtype!r} mixes leaf dtypes "
+            f"{sorted({dtype_name(p.dtype) for p in parts})}")
+    buf = torch.zeros((b, group.rows * LANES), dtype=dtype,
+                      device=parts[0].device)
+    for off, size, p in zip(group.offsets, group.sizes, parts):
+        buf[:, off:off + size] = p
+    return buf.view(b, group.rows, LANES)
+
+
+def unflatten_group(buf, group: DtypeGroup, b: int, shapes, out: list) -> None:
+    """Inverse of `flatten_group`: each leaf of the group as a view into
+    ``buf``, written into ``out`` (a list indexed like the source tree's
+    flat leaves). Padding is dropped; the round trip is bit-exact."""
+    flat = buf.reshape(b, group.rows * LANES)
+    for i, size, off in zip(group.indices, group.sizes, group.offsets):
+        out[i] = flat[:, off:off + size].view(shapes[i])

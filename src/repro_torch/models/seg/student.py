@@ -1,0 +1,165 @@
+"""MobileNetV2-style separable-conv segmentation student (PyTorch).
+
+The same network as the JAX package's student: inverted residual blocks,
+a lite ASPP head and a bilinear upsample, scaled by ``width``. Width 1.0
+has 24,661 parameters with 5 classes, width 4.0 has 334,405.
+
+Parameters stay a plain dict in the JAX package's HWIO layout and key
+names, so flatten order, and with it the wire order of a delta, is the
+same in both packages. The forward pass converts to NCHW/OIHW inside.
+Numerics that differ from PyTorch's habits, kept as the JAX package has
+them:
+
+* ``padding="SAME"`` pads the TF way: a total of
+  ``max((ceil(H/s)-1)*s + k - H, 0)``, the smaller half first. At stride
+  2 an even size pads (0, 1), an odd size (1, 1), so the padding is
+  computed from the input size, never ``padding=1``.
+* the folded norm uses the population variance over (batch, H, W) of one
+  session's batch; the ASPP context branch normalises a (batch, C, 1, 1)
+  tensor over the batch only.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import tree
+from repro_torch.device import resolve_device
+from repro_torch.models.common import ParamMeta, init_params, param_count
+
+
+@dataclass(frozen=True)
+class SegConfig:
+    name: str = "seg-student"
+    in_channels: int = 3
+    n_classes: int = 5
+    width: float = 1.0
+    # (expansion, out_ch, stride) per inverted-residual block
+    blocks: tuple = ((3, 24, 2), (3, 24, 1), (3, 32, 2), (3, 32, 1))
+    stem: int = 16
+    head: int = 64
+
+    def ch(self, c: int) -> int:
+        return max(8, int(round(c * self.width)))
+
+
+def _conv_meta(kh, kw, cin, cout):
+    return ParamMeta((kh, kw, cin, cout))
+
+
+def _dw_meta(kh, kw, c):
+    return ParamMeta((kh, kw, 1, c))
+
+
+def _bn_meta(c):  # folded scale/offset pair
+    return {"scale": ParamMeta((c,), init="zeros"),
+            "bias": ParamMeta((c,), init="zeros")}
+
+
+def seg_metas(cfg: SegConfig) -> dict:
+    m: dict = {}
+    c_in = cfg.in_channels
+    stem = cfg.ch(cfg.stem)
+    m["stem"] = {"w": _conv_meta(3, 3, c_in, stem), "bn": _bn_meta(stem)}
+    c_prev = stem
+    blocks = {}
+    for i, (exp, out, stride) in enumerate(cfg.blocks):
+        hidden, c_out = c_prev * exp, cfg.ch(out)
+        blocks[f"b{i}"] = {
+            "expand": {"w": _conv_meta(1, 1, c_prev, hidden), "bn": _bn_meta(hidden)},
+            "dw": {"w": _dw_meta(3, 3, hidden), "bn": _bn_meta(hidden)},
+            "project": {"w": _conv_meta(1, 1, hidden, c_out), "bn": _bn_meta(c_out)},
+        }
+        c_prev = c_out
+    m["blocks"] = blocks
+    head = cfg.ch(cfg.head)
+    m["aspp"] = {
+        "local": {"w": _conv_meta(1, 1, c_prev, head), "bn": _bn_meta(head)},
+        "ctx": {"w": _conv_meta(1, 1, c_prev, head), "bn": _bn_meta(head)},
+    }
+    m["classifier"] = {"w": _conv_meta(1, 1, head, cfg.n_classes),
+                       "b": ParamMeta((cfg.n_classes,), init="zeros")}
+    return m
+
+
+def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
+    total = max((math.ceil(size / s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv(x, w_hwio, stride=1, groups=1):
+    """NCHW conv with an HWIO weight and TF ``SAME`` padding."""
+    kh, kw = w_hwio.shape[0], w_hwio.shape[1]
+    top, bottom = _same_pad(x.shape[-2], kh, stride)
+    left, right = _same_pad(x.shape[-1], kw, stride)
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom))
+    return F.conv2d(x, w_hwio.permute(3, 2, 0, 1), stride=stride,
+                    groups=groups)
+
+
+def _bn_act(x, bn, act=True):
+    # folded-norm affine (no running stats: online setting, tiny batches)
+    mu = x.mean(dim=(0, 2, 3), keepdim=True)
+    var = x.var(dim=(0, 2, 3), keepdim=True, unbiased=False)
+    x = (x - mu) * torch.rsqrt(var + 1e-5)
+    x = x * (1.0 + bn["scale"].view(1, -1, 1, 1)) + bn["bias"].view(1, -1, 1, 1)
+    return torch.clamp(x, 0.0, 6.0) if act else x
+
+
+def seg_forward(cfg: SegConfig, params: dict, img):
+    """img: (B,H,W,3) float -> logits (B,H,W,n_classes)."""
+    x = img.permute(0, 3, 1, 2)
+    H, W = x.shape[-2:]
+    x = _bn_act(_conv(x, params["stem"]["w"], stride=2), params["stem"]["bn"])
+    for i, (exp, out, stride) in enumerate(cfg.blocks):
+        p = params["blocks"][f"b{i}"]
+        h = _bn_act(_conv(x, p["expand"]["w"]), p["expand"]["bn"])
+        h = _bn_act(_conv(h, p["dw"]["w"], stride=stride, groups=h.shape[1]), p["dw"]["bn"])
+        h = _bn_act(_conv(h, p["project"]["w"]), p["project"]["bn"], act=False)
+        x = x + h if (stride == 1 and h.shape == x.shape) else h
+    # lite-ASPP head: local 1x1 + global context
+    loc = _bn_act(_conv(x, params["aspp"]["local"]["w"]), params["aspp"]["local"]["bn"])
+    ctx = x.mean(dim=(2, 3), keepdim=True)
+    ctx = _bn_act(_conv(ctx, params["aspp"]["ctx"]["w"]), params["aspp"]["ctx"]["bn"])
+    h = loc + ctx
+    logits = _conv(h, params["classifier"]["w"]) + params["classifier"]["b"].view(1, -1, 1, 1)
+    logits = F.interpolate(logits, size=(H, W), mode="bilinear",
+                           align_corners=False)
+    return logits.permute(0, 2, 3, 1)
+
+
+def seg_loss(cfg: SegConfig, params: dict, img, labels):
+    """Pixel cross-entropy distillation loss against teacher hard labels."""
+    logits = seg_forward(cfg, params, img).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return (lse - lab).mean()
+
+
+def seg_predict(cfg: SegConfig, params: dict, img):
+    return torch.argmax(seg_forward(cfg, params, img), dim=-1)
+
+
+def make_student(cfg: SegConfig, seed: int = 0, device="cuda") -> dict:
+    """Fan-in-normal init drawn from ``torch.Generator().manual_seed(seed)``."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    return init_params(seg_metas(cfg), gen, torch.float32, dev)
+
+
+def params_from_numpy(params, device="cuda") -> dict:
+    """Carry a parameter tree of arrays (the JAX package's params, as numpy
+    or anything `np.asarray` takes, same nesting) into the port as tensors
+    on ``device``, bit for bit."""
+    dev = resolve_device(device)
+    return tree.tree_map(
+        lambda a: torch.from_numpy(np.array(a)).to(dev), params)
+
+
+def seg_param_count(cfg: SegConfig) -> int:
+    return param_count(seg_metas(cfg))

@@ -1,0 +1,72 @@
+"""Nested-container utilities in the JAX package's `jax.tree` order.
+
+Parameters, masks and optimizer state are plain nests of dicts, tuples,
+lists and NamedTuples with tensors at the leaves. The wire delta
+concatenates leaves in flatten order, so that order must be the one the
+JAX package uses: dict keys sorted, sequence and NamedTuple fields in
+order. (`torch.utils._pytree` keeps dict insertion order, which would
+reorder the wire.) A treedef is a hashable nest of tuples, so it can sit
+inside a grouping key.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def flatten(tree) -> tuple[list, Any]:
+    """``(leaves, treedef)``; `unflatten` inverts it."""
+    leaves: list = []
+
+    def rec(t):
+        if isinstance(t, dict):
+            keys = tuple(sorted(t))
+            return ("dict", keys, tuple(rec(t[k]) for k in keys))
+        if _is_namedtuple(t):
+            return ("namedtuple", type(t), tuple(rec(c) for c in t))
+        if isinstance(t, (tuple, list)):
+            return (type(t).__name__, len(t), tuple(rec(c) for c in t))
+        leaves.append(t)
+        return None
+
+    return leaves, rec(tree)
+
+
+def unflatten(treedef, leaves) -> Any:
+    it = iter(leaves)
+
+    def rec(d):
+        if d is None:
+            return next(it)
+        kind, meta, children = d
+        built = [rec(c) for c in children]
+        if kind == "dict":
+            return dict(zip(meta, built))
+        if kind == "namedtuple":
+            return meta(*built)
+        return tuple(built) if kind == "tuple" else list(built)
+
+    out = rec(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the treedef holds")
+    return out
+
+
+def leaves(tree) -> list:
+    return flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Map ``fn`` over the leaves of ``tree`` and of same-structure
+    ``rest`` trees, leaf by leaf."""
+    ls, treedef = flatten(tree)
+    others = []
+    for r in rest:
+        rl, rd = flatten(r)
+        if rd != treedef:
+            raise ValueError("tree_map over trees of different structure")
+        others.append(rl)
+    return unflatten(treedef, [fn(*xs) for xs in zip(ls, *others)])
