@@ -30,9 +30,23 @@ its own:
    to 0 just before and read just after; afterwards both kernels are held
    against their plain versions again on the run's real updates and
    gradients, and each stage of a phase is timed on its own;
-5. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
+5. the LLM serving path: Gemma-2 9B at full width and depth (42 layers,
+   d_model 3584, random bf16 weights drawn on the card from seed 0), a
+   batch of 2 random prompts of 8,000 tokens, prefill, then 64 greedy
+   decode steps through ``launch.serve.serve``, once cold and once timed
+   (times of both printed; the timed run's tokens must equal the cold
+   run's). For the timed run the RMSNorm (K3) and
+   flash-attention (K4) launch counts are set to 0 just before and read
+   just after, and must be 169 and 42 for the prefill and 169 per token
+   and 0 for decode; every logit must be finite. Then K3 and K4 are held
+   against their plain versions on synthetic inputs and on the run's own
+   data (layer 0's norm input; layer 0's local and layer 1's global q, k,
+   v), and timed at those shapes beside their bounds, their plain
+   versions and a PyTorch call (``F.rms_norm``; for K4 at softcap 0,
+   ``scaled_dot_product_attention``);
+6. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
    against its plain version, times and bound;
-6. the last line, ``{"ok": true, "device": {...}}``.
+7. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; it does so too without CUDA, and when ``src/`` is missing (the
@@ -66,18 +80,33 @@ from repro_torch.core.server import AMSConfig, AMSSession, Task  # noqa: E402
 from repro_torch.data.video import VideoConfig  # noqa: E402
 from repro_torch.device import host_to_device  # noqa: E402
 from repro_torch.kernels import build, stacking  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as attn_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
 from repro_torch.kernels.masked_adam import ops as adam_ops  # noqa: E402
 from repro_torch.kernels.masked_adam import ref as adam_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
 from repro_torch.kernels.topk_mask import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.topk_mask import ref as topk_ref  # noqa: E402
+from repro_torch.launch.serve import (MAIN_BATCH, MAIN_DECODE, MAIN_PROMPT,  # noqa: E402
+                                      main_path_inputs, serve)
 from repro_torch.metrics.miou import miou  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.attention import _proj_qkv  # noqa: E402
+from repro_torch.models.layers import apply_norm, embed_apply  # noqa: E402
+from repro_torch.models.registry import build as build_model  # noqa: E402
 from repro_torch.models.seg.student import SegConfig, make_student, seg_param_count  # noqa: E402
 from repro_torch.sim.seg_world import SegWorld, phi_pixel_loss  # noqa: E402
 
 # data-sheet peaks per card, matched on the name nvidia-smi reports:
-# (substring, device memory bytes/s, float32 FLOP/s outside tensor cores)
-PEAKS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+# (substring, device memory bytes/s, float32 FLOP/s outside tensor cores,
+#  dense bf16 tensor-core FLOP/s)
+PEAKS = (("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100", 3.35e12, 67e12, 989e12))
+# special-function (tanh, exp) rate assumed for the attention's second
+# bound: 16 per SM per clock (the Hopper white paper's SM: 4 SFUs in each
+# of 4 partitions), 132 SMs, 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
 
 B, N_PARAMS = 8, 334_405            # main path: sessions, width-4.0 student
 WIDTH, HW = 4.0, 256                # student width, frame height and width
@@ -86,9 +115,9 @@ FRAC = 0.05
 
 
 def peaks(name: str):
-    for key, bw, flops in PEAKS:
+    for key, *rates in PEAKS:
         if key in name:
-            return bw, flops
+            return rates
     raise RuntimeError(f"no data-sheet peaks known for {name!r}")
 
 
@@ -195,8 +224,20 @@ def k1_phase(dev, bw, flops):
     print(f"K1 masked_adam_3d {tuple(shape)}: kernel {ms:.4f} ms on the device "
           f"({call_ms:.4f} ms per call from idle, wrapper included), plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    # B=1, the sequential path's launch (the JAX package's masked_adam_2d)
+    one = tuple(t[:1].contiguous() for t in main)
+    bc1 = bc[:1].contiguous()
+    err = max(err, k1_compare(one, bc1))
+    b1_ms = device_ms(lambda: adam_ops.masked_adam_3d(*one, bc1, **ADAM))
+    b1_plain_ms = device_ms(lambda: adam_ref.masked_adam_ref(*one, bc1, **ADAM))
+    b1_bytes = one[0].numel() * (4 * 4 + 1 + 4 * 4) + 4
+    b1_bound_ms = 1e3 * max(b1_bytes / bw, 13 * one[0].numel() / flops)
+    print(f"K1 masked_adam_3d at B=1 {tuple(one[0].shape)}: bitwise equal to plain; "
+          f"kernel {b1_ms:.4f} ms, plain {b1_plain_ms:.4f} ms, bound "
+          f"{b1_bound_ms:.4f} ms ({b1_bytes / 1e6:.1f} MB)")
     return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms)
+                bound_ms=bound_ms, b1_ms=b1_ms, b1_plain_ms=b1_plain_ms,
+                b1_bound_ms=b1_bound_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +483,227 @@ def phase_breakdown(dev, sessions):
           f"{select_ms:.3f}; encode {encode_ms:.1f}; sum {total:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# the LLM serving path: Gemma-2 9B prefill and greedy decode
+# ---------------------------------------------------------------------------
+
+def within_bf16_ulp(got, want, atol=1e-5) -> bool:
+    """|got - want| <= one bf16 ulp of want (+ atol near zero): two float32
+    results a few roundings apart round to neighbouring bf16 values."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    return bool(((g - w).abs() <= ulp + atol).all())
+
+
+def k3_compare(x, w) -> float:
+    got = norm_ops.rms_norm(x, w)
+    want = norm_ref.rms_norm_ref(x, w)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape, "K3 dtype/shape")
+    if x.dtype == torch.float32:  # sums in another order: ~1e-6 relative
+        check(torch.allclose(got, want, rtol=2e-6, atol=1e-6),
+              "K3 differs from its plain version beyond 2e-6")
+    else:
+        check(within_bf16_ulp(got, want), "K3 differs from its plain version "
+              "by more than one bf16 ulp")
+    return float((got.float() - want.float()).abs().max())
+
+
+def k4_compare(q, k, v, **kw) -> float:
+    got = attn_ops.flash_attention(q, k, v, **kw)
+    want = attn_ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape, "K4 dtype/shape")
+    check(bool(torch.isfinite(got.float()).all()), "K4 output finite")
+    if q.dtype == torch.float32:  # online vs two-pass softmax, other sums
+        check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+              "K4 differs from its plain version beyond 2e-5")
+    else:
+        check(within_bf16_ulp(got, want), "K4 differs from its plain version "
+              "by more than one bf16 ulp")
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def llm_path(dev):
+    """Gemma-2 9B at full width and depth: random bf16 weights drawn on the
+    card, a batch of 2 random prompts of 8,000 tokens, prefill, then 64
+    greedy decode steps through `launch.serve.serve`. A first, cold run
+    (the kernels' first launches, cuBLAS's first calls at these shapes)
+    goes before the run whose times and launch counts are kept."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, prompt = main_path_inputs(dev)
+    torch.cuda.synchronize()
+    n_params = sum(l.numel() for l in tree.leaves(params))
+    check(n_params == build_model(cfg).num_params(), "parameter count")
+    print(f"LLM path: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"window {cfg.window_size}, softcaps {cfg.attn_logit_softcap}/"
+          f"{cfg.final_logit_softcap}), {n_params:,} params in {cfg.param_dtype}, "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s; batch {MAIN_BATCH}, "
+          f"prompts of {MAIN_PROMPT} tokens, {MAIN_DECODE} decode steps")
+    cold = serve(cfg, params, prompt, MAIN_DECODE, dev)
+    check(cold["finite"], "every logit of the cold run finite")
+    norm_ops.launches = 0
+    attn_ops.launches = 0
+    r = serve(cfg, params, prompt, MAIN_DECODE, dev)
+    launches = {"rms_norm": norm_ops.launches, "flash_attention": attn_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    toks = r["tokens"]
+    print(f"LLM prefill {r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_token']:.3f} "
+          f"ms per token (CUDA events; the cold first run: {cold['prefill_ms']:.1f} ms, "
+          f"{cold['decode_ms_per_token']:.3f} ms); peak memory {peak / 2**30:.2f} GiB "
+          f"({peak:,} bytes); all logits finite: {r['finite']}")
+    print(f"LLM launches: prefill {r['launches']['prefill']}, decode "
+          f"{r['launches']['decode']} over {MAIN_DECODE} steps; total {launches}")
+    print(f"LLM first 16 generated tokens of row 0: {toks[0, :16].tolist()}")
+    n_norms = 4 * cfg.num_layers + 1
+    check(r["finite"], "every logit finite")
+    check(torch.equal(toks, cold["tokens"]), "the cold and the timed run's tokens agree")
+    check(tuple(toks.shape) == (MAIN_BATCH, MAIN_DECODE + 1), "generated tokens' shape")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "tokens in the vocabulary")
+    check(r["launches"]["prefill"] == {"rms_norm": n_norms,
+                                       "flash_attention": cfg.num_layers},
+          f"prefill launches {r['launches']['prefill']}")
+    check(r["launches"]["decode"] == {"rms_norm": n_norms * MAIN_DECODE,
+                                      "flash_attention": 0},
+          f"decode launches {r['launches']['decode']}")
+    check(launches["rms_norm"] == n_norms * (MAIN_DECODE + 1)
+          and launches["flash_attention"] == cfg.num_layers, "LLM path launches")
+    return cfg, params, prompt, r, cold, launches, peak
+
+
+def llm_layer_inputs(cfg, params, prompt):
+    """The run's own data for K3 and K4, recomputed from the prompt: the
+    input of layer 0's first norm, and layer 0's (local) and layer 1's
+    (global) q, k, v."""
+    B, S = prompt.shape
+    positions = torch.arange(S, device=prompt.device).expand(B, S)
+    x = embed_apply(cfg, params["embed"], prompt, positions)
+    gp = tfm.group_params(params, 0)
+    local, glob = gp["b0"], gp["b1"]
+    qkv_local = _proj_qkv(cfg, local["attn"], apply_norm(cfg, x, local["ln1"]),
+                          positions=positions)
+    x1, _ = tfm.block_apply(cfg, cfg.pattern[0], local, x, positions=positions)
+    qkv_global = _proj_qkv(cfg, glob["attn"], apply_norm(cfg, x1, glob["ln1"]),
+                           positions=positions)
+    return (x, local["ln1"]), qkv_local, qkv_global
+
+
+def k3_phase(dev, cfg, norm_in, bw):
+    """K3 against its plain version on synthetic rows and on the run's
+    prefill-layer input; then its time at that shape."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    err = 0.0
+    for shape, dt, wdt in (((3, 7, 3584), torch.float32, torch.float32),
+                           ((5, 33), torch.float32, torch.bfloat16),
+                           ((MAIN_BATCH, 1, 3584), torch.bfloat16, torch.bfloat16),
+                           ((4, 40_000), torch.bfloat16, torch.float32)):
+        x = (torch.randn(shape, generator=g, device=dev) * 3).to(dt)
+        w = (torch.randn(shape[-1], generator=g, device=dev) * 0.1).to(wdt)
+        err = max(err, k3_compare(x, w))
+    x, w0 = norm_in
+    w = (torch.randn(w0.shape, generator=g, device=dev) * 0.1).to(w0.dtype)
+    err = max(err, k3_compare(x, w0), k3_compare(x, w))
+    print(f"K3 rms_norm within 1 bf16 ulp (float32: 2e-6) of its plain version on "
+          f"4 synthetic shapes and on the run's layer-0 input {tuple(x.shape)} "
+          f"(its zero-init weight and a random one); max abs err {err:.3e}")
+    ms = device_ms(lambda: norm_ops.rms_norm(x, w))
+    call_ms = time_ms(lambda: norm_ops.rms_norm(x, w))
+    plain_ms = device_ms(lambda: norm_ref.rms_norm_ref(x, w), n=5)
+    w1 = (1.0 + w.float()).to(w.dtype)
+    library_ms = device_ms(lambda: torch.nn.functional.rms_norm(
+        x, (x.shape[-1],), weight=w1, eps=1e-6))
+    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    bound_ms = 1e3 * nbytes / bw
+    print(f"K3 rms_norm {tuple(x.shape)} {x.dtype}: kernel {ms:.4f} ms on the device "
+          f"({call_ms:.4f} ms per call from idle), plain {plain_ms:.4f} ms, "
+          f"F.rms_norm {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB)")
+    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms)
+
+
+def live_pairs(S: int, window: int) -> int:
+    """Causal (query, key) pairs that the mask keeps, over one head."""
+    if not window:
+        return S * (S + 1) // 2
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops):
+    """K4 against its plain version on synthetic inputs and on the run's
+    local and global layer; then times at both shapes, and beside
+    scaled_dot_product_attention at softcap 0."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    err = 0.0
+    for B, S, KV, G, dt, kw in (
+            (1, 777, 1, 8, torch.float32, dict(causal=True, window=300, softcap=30.0)),
+            (2, 1000, 8, 2, torch.bfloat16, dict(causal=False, window=0, softcap=0.0)),
+            (1, 300, 2, 2, torch.bfloat16, dict(causal=True, window=100, softcap=50.0))):
+        q = torch.randn(B, S, KV, G, 256, generator=g, device=dev).to(dt)
+        k = torch.randn(B, S, KV, 256, generator=g, device=dev).to(dt)
+        v = torch.randn(B, S, KV, 256, generator=g, device=dev).to(dt)
+        err = max(err, k4_compare(q, k, v, **kw))
+    print(f"K4 flash_attention within tolerance of its plain version on 3 synthetic "
+          f"cases (ragged S, MQA, non-causal, float32 at 2e-5); max abs err {err:.3e}")
+    cap = cfg.attn_logit_softcap
+    kw_local = dict(causal=True, window=cfg.window_size, softcap=cap)
+    kw_global = dict(causal=True, window=0, softcap=cap)
+    err_local = k4_compare(*qkv_local, **kw_local)
+    err_global = k4_compare(*qkv_global, **kw_global)
+    q, k, v = qkv_global
+    print(f"K4 flash_attention within 1 bf16 ulp of its plain version on the run's "
+          f"layer 0 (local, window {cfg.window_size}) and layer 1 (global) q, k, v "
+          f"{tuple(q.shape)}: max abs err {err_local:.3e} / {err_global:.3e}")
+    B, S, KV, G, hd = q.shape
+    H = KV * G
+    ms = device_ms(lambda: attn_ops.flash_attention(q, k, v, **kw_global), n=3, reps=3)
+    local_ms = device_ms(lambda: attn_ops.flash_attention(*qkv_local, **kw_local),
+                         n=3, reps=3)
+    plain_ms = device_ms(lambda: attn_ref.flash_attention_ref(q, k, v, **kw_global),
+                         n=1, reps=3)
+    torch.cuda.empty_cache()
+    nocap = dict(causal=True, window=0, softcap=0.0)
+    ms_nocap = device_ms(lambda: attn_ops.flash_attention(q, k, v, **nocap), n=3, reps=3)
+    q4 = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd).contiguous()
+    k4, v4 = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ours = attn_ops.flash_attention(q, k, v, **nocap)
+    lib = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+    lib = lib.reshape(B, KV, G, S, hd).permute(0, 3, 1, 2, 4)
+    # the yardstick computes the same function (SDPA rounds P to bf16)
+    sdpa_err = float((ours.float() - lib.float()).abs().max())
+    check(sdpa_err <= 1e-2 * float(ours.float().abs().max()),
+          f"K4 at softcap 0 vs scaled_dot_product_attention: {sdpa_err}")
+    library_ms = device_ms(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True),
+                           n=3, reps=3)
+    del ours, lib, q4, k4, v4
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()  # q, o; k, v
+    pairs = B * H * live_pairs(S, 0)
+    pairs_local = B * H * live_pairs(S, cfg.window_size)
+    bound_ms = 1e3 * max(nbytes / bw, 4 * hd * pairs / bf16_flops)
+    local_bound_ms = 1e3 * max(nbytes / bw, 4 * hd * pairs_local / bf16_flops)
+    sfu_ms, sfu_local_ms = (1e3 * 2 * n / SFU_PER_S for n in (pairs, pairs_local))
+    print(f"K4 flash_attention {tuple(q.shape)} bf16, softcap {cap}: global layer "
+          f"kernel {ms:.3f} ms (bound {bound_ms:.4f} ms: {4 * hd * pairs / 1e12:.3f} "
+          f"TFLOP at {bf16_flops / 1e12:.0f} TFLOP/s bf16; tanh+exp {sfu_ms:.4f} ms), "
+          f"local layer {local_ms:.3f} ms (bound {local_bound_ms:.4f} ms; tanh+exp "
+          f"{sfu_local_ms:.4f} ms); plain (global) {plain_ms:.3f} ms")
+    print(f"K4 at softcap 0 (global): kernel {ms_nocap:.3f} ms, "
+          f"scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+          f"{library_ms:.3f} ms (max abs diff {sdpa_err:.3e}); no single PyTorch call "
+          f"computes the softcapped attention")
+    return dict(err=max(err, err_local, err_global), ms=ms, local_ms=local_ms,
+                plain_ms=plain_ms, ms_softcap0=ms_nocap, library_ms=library_ms,
+                bound_ms=bound_ms, local_bound_ms=local_bound_ms,
+                transcendental_ms=sfu_ms)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this needs one NVIDIA GPU")
@@ -452,7 +714,7 @@ def main() -> None:
     print(smi.strip().splitlines()[0])
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    bw, flops = peaks(name)
+    bw, flops, bf16_flops = peaks(name)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -471,6 +733,16 @@ def main() -> None:
     sessions, launches = main_path(dev)
     err1, err2 = recheck_on_run(dev, sessions)
     phase_breakdown(dev, sessions)
+    del sessions
+    torch.cuda.empty_cache()
+
+    # 5. the LLM serving path, then K3 and K4 on its own data
+    cfg, params, prompt, llm, llm_cold, llm_launches, peak = llm_path(dev)
+    norm_in, qkv_local, qkv_global = llm_layer_inputs(cfg, params, prompt)
+    del params
+    torch.cuda.empty_cache()
+    k3 = k3_phase(dev, cfg, norm_in, bw)
+    k4 = k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops)
 
     # 5. kernels line
     kernels = [
@@ -480,7 +752,9 @@ def main() -> None:
              launches=launches["masked_adam_3d"], max_abs_err=max(k1["err"], err1),
              ms=k1["ms"], kernel_ms=k1["ms"], call_ms=k1["call_ms"],
              plain_ms=k1["plain_ms"],
-             bound_ms=k1["bound_ms"], bound_by="bytes", library_ms=None),
+             bound_ms=k1["bound_ms"], bound_by="bytes", library_ms=None,
+             b1_ms=k1["b1_ms"], b1_plain_ms=k1["b1_plain_ms"],
+             b1_bound_ms=k1["b1_bound_ms"]),
         dict(name="topk_threshold_bits", route="cuda",
              source="src/repro_torch/csrc/topk_mask.cu",
              replaces="src/repro/kernels/topk_mask/topk_mask.py:50",
@@ -488,7 +762,27 @@ def main() -> None:
              max_abs_err=max(k2["err"], err2), ms=k2["ms"], kernel_ms=k2["ms"],
              call_ms=k2["call_ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"], bound_by="bytes",
              library_ms=k2["library_ms"]),
+        dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm/rmsnorm.py:25",
+             launches=llm_launches["rms_norm"], max_abs_err=k3["err"], ms=k3["ms"],
+             call_ms=k3["call_ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by="bytes", library_ms=k3["library_ms"],
+             library_call="torch.nn.functional.rms_norm(x, (d,), weight=1+w, eps=1e-6)"),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:89",
+             launches=llm_launches["flash_attention"], max_abs_err=k4["err"],
+             ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by="operations", library_ms=k4["library_ms"],
+             library_call="scaled_dot_product_attention(is_causal=True, "
+                          "enable_gqa=True) at softcap 0, beside ms_softcap0",
+             ms_softcap0=k4["ms_softcap0"], local_ms=k4["local_ms"],
+             local_bound_ms=k4["local_bound_ms"],
+             transcendental_ms=k4["transcendental_ms"]),
     ]
+    print(f"LLM summary: prefill {llm['prefill_ms']:.1f} ms (cold "
+          f"{llm_cold['prefill_ms']:.1f}), decode {llm['decode_ms_per_token']:.3f} "
+          f"ms/token (cold {llm_cold['decode_ms_per_token']:.3f}), peak {peak:,} bytes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Where the time of the port's LLM serving path goes, on one CUDA card.
+
+    PYTHONPATH=src python3 scripts/profile_llm_serve.py
+
+The main path of `repro_torch.launch.serve` (`main_path_inputs`,
+`MAIN_DECODE`): Gemma-2 9B at full width and depth, random bf16 weights
+drawn on the card from seed 0, a batch of 2 random prompts of 8,000
+tokens, one prefill into a cache of 8,064 positions, then 64 greedy
+decode steps, through `make_prefill_step` and `make_serve_step`. The
+prefill and the decode steps are each run once untraced as a warm-up and
+once more untraced for their wall times, then traced with
+`torch.profiler` (CUDA activity only, which keeps the tracer's own host
+work small). It prints, per traced phase
+and per decode step: the wall time (the tracer's host overhead
+included), the device time summed over kernels, their ratio (the
+device's busy share; kernels do not overlap on one stream), the number
+of kernel launches, the device time grouped into the port's own kernels,
+matrix products (cuBLAS), copies and casts, and the rest, and the
+kernels with the most device time. It needs a card and exits non-zero
+without one.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.launch.serve import MAIN_DECODE, main_path_inputs  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.models.registry import build  # noqa: E402
+
+TOP = 12  # kernels listed per phase
+
+
+def kernel_times(prof):
+    """{kernel name: (device us, launches)} over CUDA kernels only."""
+    out = defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.name][0] += ev.time_range.elapsed_us()
+            out[ev.name][1] += 1
+    return out
+
+
+def group(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "K4 flash attention"
+    if "rms_norm_kernel" in name:
+        return "K3 RMSNorm"
+    if any(k in low for k in ("nvjet", "gemm", "gemv", "xmma", "cutlass")):
+        return "matrix products"
+    if "direct_copy" in name:
+        return "copies and casts"
+    return "other"
+
+
+def report(label: str, prof, wall_ms: float, steps: int = 1):
+    """Per step: wall and device ms, launches; device ms by group and by
+    kernel."""
+    ks = kernel_times(prof)
+    dev_ms = sum(t for t, _ in ks.values()) / 1e3
+    n = sum(c for _, c in ks.values())
+    if not n:
+        sys.exit(f"profile_llm_serve: the trace of the {label} holds no kernel")
+    print(f"{label}, per step: wall {wall_ms / steps:.2f} ms, device kernels "
+          f"{dev_ms / steps:.2f} ms ({n / steps:.0f} launches), busy share "
+          f"{dev_ms / wall_ms:.3f}")
+    groups = defaultdict(lambda: [0.0, 0])
+    for name, (t, c) in ks.items():
+        groups[group(name)][0] += t / 1e3
+        groups[group(name)][1] += c
+    for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {g:20s} {t / steps:10.2f} ms  {100 * t / max(dev_ms, 1e-9):5.1f}%  "
+              f"{c / steps:.0f} launches")
+    for name, (t, c) in sorted(ks.items(), key=lambda kv: -kv[1][0])[:TOP]:
+        print(f"    {t / 1e3 / steps:10.3f} ms  {c / steps:8.1f}x  {name[:110]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("profile_llm_serve: CUDA is not available; this needs one GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    print(smi.strip().splitlines()[0])
+    dev = torch.device("cuda", 0)
+    cfg, params, prompt = main_path_inputs(dev)
+    model = build(cfg)
+    B, S = prompt.shape
+    prefill_step = make_prefill_step(model, S + MAIN_DECODE)
+    serve_step = make_serve_step(model)
+
+    def prefill():
+        return prefill_step(params, {"tokens": prompt})
+
+    def decode(caches, tok):
+        for i in range(MAIN_DECODE):
+            tok, caches, _ = serve_step(params, caches, {"tokens": tok, "pos": S + i})
+        return tok
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    for run in ("warm-up", "untraced"):
+        (logits, caches), pre_ms = timed(prefill)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        _, dec_ms = timed(decode, caches, tok)
+        del logits, caches
+        print(f"{run}: prefill {pre_ms:.1f} ms, decode {dec_ms / MAIN_DECODE:.2f} "
+              f"ms per step (host clock around synchronised calls)")
+    acts = [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        (logits, caches), wall = timed(prefill)
+    report(f"prefill (batch {B} x {S} tokens)", prof, wall)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    with profile(activities=acts) as prof:
+        _, wall = timed(decode, caches, tok)
+    report(f"decode ({MAIN_DECODE} steps, cache {S + MAIN_DECODE})", prof, wall,
+           MAIN_DECODE)
+
+
+if __name__ == "__main__":
+    main()

@@ -22,12 +22,24 @@ down to the edge's mIoU):
   has a plain PyTorch version in its ``ref.py``, which CPU tensors take
   and which the kernel is held against on the card.
 
+Ported (the LLM zoo's dense serving path, prefill and greedy decode):
+
+* ``models/common.py`` (the whole ``ModelConfig``, initialisers that draw
+  on the card), ``models/layers.py``, ``models/attention.py``,
+  ``models/transformer.py`` (dense block kinds) and ``models/registry.py``
+  with ``params_from_numpy``; ``configs/`` (Gemma-2 9B and Gemma 2B);
+  ``launch/steps.py`` and ``launch/serve.py``;
+* its two kernels, hand-written in CUDA C++ for sm_90a: RMSNorm and
+  forward flash attention (grouped KV heads, causal, sliding-window and
+  softcap masks).
+
 Not ported yet: the serving engine (``serving/``), the learned teacher,
 ``pretrain_student``, ``sim/runner.py`` and the multi-client simulator,
 the momentum optimizer and the Table-3 selection strategies, sharded
 execution, the exec/kernel-mode races and ``core/timing.py``, the
-roofline model, and the LLM model zoo with its two kernels (RMSNorm and
-flash attention).
+roofline model, and the LLM zoo's MoE, Mamba2, RWKV6, cross-attention and
+encoder modules with their configs, ``data/tokens.py``, ``checkpoint/``
+and the dry-run and training launchers.
 
 Entry points take ``device="cuda"`` by default and raise when there is
 no card; the CPU runs only when the caller passes ``device="cpu"``.

@@ -1,0 +1,149 @@
+"""Batched serving entry point: prefill a prompt batch, then greedy-decode tokens
+against the KV cache (the JAX package's `launch/serve.py`).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --batch 2 --prompt-len 16 --tokens 8 --device cpu
+
+runs a smoke config on the CPU; without ``--device`` it runs on the card.
+`serve` is the function behind it. The main path, which `chip_smoke.py`
+drives and `scripts/profile_llm_serve.py` profiles, is defined once here:
+`MAIN_ARCH` at full width and depth, `MAIN_BATCH` prompts of `MAIN_PROMPT`
+tokens and `MAIN_DECODE` decode steps (`main_path_inputs`).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.rmsnorm import ops as norm_ops
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.registry import build
+
+
+# The main path: Gemma-2 9B's published config with random bf16 weights,
+# 8,000-token prompts (past the 4,096 window, not a multiple of the
+# attention kernel's 64-row tile), then 64 greedy decode steps.
+MAIN_ARCH = "gemma2-9b"
+MAIN_BATCH, MAIN_PROMPT, MAIN_DECODE = 2, 8000, 64
+
+
+def main_path_inputs(device="cuda"):
+    """``(cfg, params, prompt)`` of the main path: `MAIN_ARCH`'s full
+    config, its weights drawn on ``device`` from a generator seeded with 0,
+    and (MAIN_BATCH, MAIN_PROMPT) random token ids from the same generator."""
+    dev = resolve_device(device)
+    cfg = get_config(MAIN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build(cfg).init(gen, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (MAIN_BATCH, MAIN_PROMPT),
+                           generator=gen, device=dev)
+    return cfg, params, prompt
+
+
+class _Clock:
+    """Milliseconds between marks: CUDA events on the card (device time,
+    read after one synchronise), the host clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self, i: int, j: int) -> float:
+        a, b = self.marks[i], self.marks[j]
+        if self.cuda:
+            b.synchronize()
+            return a.elapsed_time(b)
+        return 1e3 * (b - a)
+
+
+def _counts():
+    return {"rms_norm": norm_ops.launches, "flash_attention": attn_ops.launches}
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def serve(cfg: ModelConfig, params: dict, prompt: torch.Tensor, n_tokens: int,
+          device="cuda") -> dict:
+    """Prefill ``prompt`` (B, S) and take ``n_tokens`` greedy decode steps
+    against a cache of ``S + n_tokens`` positions.
+
+    Returns a dict: ``tokens`` (B, n_tokens + 1) int32 on the host (the
+    prefill's token, then one per decode step); ``finite`` (every logit of
+    the run was finite); ``prefill_ms`` and ``decode_ms_per_token``
+    (device time on the card, host time on the CPU); ``launches``, the
+    RMSNorm and flash-attention kernel launches of the prefill and of all
+    decode steps (0 on the CPU, where the plain versions run)."""
+    dev = resolve_device(device)
+    model = build(cfg)
+    B, S = prompt.shape
+    prompt = prompt.to(dev)
+    prefill_step = make_prefill_step(model, S + n_tokens)
+    serve_step = make_serve_step(model)
+
+    clock = _Clock(dev)
+    c0 = _counts()
+    clock.mark()
+    logits, caches = prefill_step(params, {"tokens": prompt})
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, 1)
+    clock.mark()
+    c1 = _counts()
+    finite = torch.isfinite(logits).all()
+    out = [tok]
+    for i in range(n_tokens):
+        tok, caches, logits = serve_step(params, caches, {"tokens": tok, "pos": S + i})
+        finite &= torch.isfinite(logits).all()  # stays on the device
+        out.append(tok)
+    clock.mark()
+    c2 = _counts()
+    return {
+        "tokens": torch.cat(out, dim=1).cpu(),
+        "finite": bool(finite),
+        "prefill_ms": clock.ms(0, 1),
+        "decode_ms_per_token": clock.ms(1, 2) / max(n_tokens, 1),
+        "launches": {"prefill": _diff(c1, c0), "decode": _diff(c2, c1)},
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build(cfg).init(gen, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=dev)
+    # --tokens counts the prefill's token too, as in the JAX package's CLI
+    r = serve(cfg, params, prompt, max(args.tokens - 1, 0), dev)
+    dt = r["decode_ms_per_token"]
+    print(f"arch={cfg.name} device={dev} batch={args.batch} "
+          f"prefill={r['prefill_ms']:.1f}ms decode={dt:.2f}ms/tok "
+          f"({args.batch * 1e3 / max(dt, 1e-9):.1f} tok/s) finite={r['finite']} "
+          f"launches={r['launches']}")
+    print("sample:", r["tokens"][0, :16].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,126 @@
+"""Primitive layers: norms, rotary embeddings, MLPs, embedding/unembedding
+(the JAX package's `models/layers.py`).
+
+Convention: every norm stores its scale as an *offset* w with effective
+scale (1 + w) (zeros-init). RMSNorm goes through the hand-written kernel
+(`repro_torch.kernels.rmsnorm`) on the card and its plain version on the
+CPU; LayerNorm stays plain.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rmsnorm.ops import rms_norm as _rms_norm_kernel
+from repro_torch.models.common import ModelConfig, ParamMeta, dense_meta
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def _check_ported(cfg: ModelConfig):
+    """The ported configs use RoPE and GeGLU; learned or sinusoidal
+    positions and the SwiGLU and plain-gelu MLPs wait for the architectures
+    that use them."""
+    if cfg.pos not in ("rope", "none"):
+        raise NotImplementedError(
+            f"pos={cfg.pos!r} is not ported yet (ROADMAP §1 item 7)")
+    if cfg.mlp_act != "geglu":
+        raise NotImplementedError(
+            f"mlp_act={cfg.mlp_act!r} is not ported yet (ROADMAP §1 item 7)")
+
+
+def rms_norm(x, w, eps=1e-6):
+    return _rms_norm_kernel(x, w, eps)
+
+
+def layer_norm(x, w, eps=1e-5):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * (1.0 + w.to(torch.float32))
+    return out.to(dt)
+
+
+def apply_norm(cfg: ModelConfig, x, w):
+    return rms_norm(x, w) if cfg.norm == "rms" else layer_norm(x, w)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, seq, *head_dims, head_dim); positions: (B, seq). Rotates
+    halves (not interleaved pairs), in float32, cast back to x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs  # (B, seq, hd/2)
+    expand = (slice(None), slice(None)) + (None,) * (x.dim() - 3) + (slice(None),)
+    cos = torch.cos(ang)[expand]  # (B, seq, 1..., hd/2)
+    sin = torch.sin(ang)[expand]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Softcap
+# ---------------------------------------------------------------------------
+
+
+def softcap(x, cap: float):
+    if not cap:
+        return x
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_metas(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, ff = cfg.d_model, (d_ff or cfg.d_ff)
+    _check_ported(cfg)
+    return {"wg": dense_meta(d, ff), "wu": dense_meta(d, ff), "wd": dense_meta(ff, d)}
+
+
+def mlp_apply(cfg: ModelConfig, p: dict, x):
+    """GeGLU, the one MLP of the ported configs."""
+    _check_ported(cfg)
+    return (F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding (tied)
+# ---------------------------------------------------------------------------
+
+
+def embed_metas(cfg: ModelConfig) -> dict:
+    _check_ported(cfg)
+    return {"tok": ParamMeta((cfg.vocab_size, cfg.d_model), init="embed")}
+
+
+def embed_apply(cfg: ModelConfig, p: dict, tokens, positions=None):
+    """Token embedding; positions enter through RoPE in attention."""
+    _check_ported(cfg)
+    x = p["tok"][tokens].to(cfg.cdtype)
+    if cfg.embed_scale:
+        # the scale is rounded to the compute dtype first, as the JAX
+        # package does (sqrt(3584) is 60.0 in bf16, not 59.87)
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.cdtype, device=x.device)
+    return x
+
+
+def unembed_apply(cfg: ModelConfig, p: dict, x):
+    logits = x @ p["tok"].T.to(cfg.cdtype)
+    return softcap(logits, cfg.final_logit_softcap)

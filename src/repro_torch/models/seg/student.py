@@ -23,13 +23,16 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import tree
 from repro_torch.device import resolve_device
-from repro_torch.models.common import ParamMeta, init_params, param_count
+from repro_torch.models.common import (  # noqa: F401  (params_from_numpy)
+    ParamMeta,
+    init_params,
+    param_count,
+    params_from_numpy,
+)
 
 
 @dataclass(frozen=True)
@@ -150,15 +153,6 @@ def make_student(cfg: SegConfig, seed: int = 0, device="cuda") -> dict:
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return init_params(seg_metas(cfg), gen, torch.float32, dev)
-
-
-def params_from_numpy(params, device="cuda") -> dict:
-    """Carry a parameter tree of arrays (the JAX package's params, as numpy
-    or anything `np.asarray` takes, same nesting) into the port as tensors
-    on ``device``, bit for bit."""
-    dev = resolve_device(device)
-    return tree.tree_map(
-        lambda a: torch.from_numpy(np.array(a)).to(dev), params)
 
 
 def seg_param_count(cfg: SegConfig) -> int:

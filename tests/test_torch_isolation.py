@@ -76,6 +76,22 @@ def test_cuda_entry_points_raise_without_a_card():
         params_from_numpy({"w": np.zeros(3, np.float32)}, device="cuda")
 
 
+def test_llm_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the test is for hosts without one")
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build
+
+    cfg = get_smoke("gemma2-9b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.serve(cfg, {}, torch.zeros(1, 4, dtype=torch.int64), 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "gemma2-9b", "--tokens", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build(cfg).init(torch.Generator())
+
+
 def _run_smoke(cwd: Path):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)

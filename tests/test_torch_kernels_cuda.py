@@ -108,3 +108,75 @@ def test_topk_kernel_takes_large_sessions(dev):
     too_big = torch.empty(1, 2**31 // 128, 128, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         topk_ops.topk_threshold_bits(too_big, 1)
+
+
+# ---------------------------------------------------------------------------
+# K3 (RMSNorm) and K4 (flash attention), at the Gemma-2 9B path's shapes
+# ---------------------------------------------------------------------------
+
+
+def _within_bf16_ulp(got, want, atol=1e-5):
+    """Every value of ``got`` within one bf16 unit in the last place of
+    ``want``'s (two float32 results a few float32 roundings apart may
+    round to neighbouring bf16 values), plus ``atol`` near zero, where
+    float32 sums of O(1) terms cancel."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    return bool(((g - w).abs() <= ulp + atol).all())
+
+
+@pytest.mark.parametrize("shape,dtype,wdtype", [
+    ((16_000, 3584), torch.bfloat16, torch.bfloat16),   # the prefill's rows
+    ((2, 1, 3584), torch.bfloat16, torch.bfloat16),     # a decode step's
+    ((3, 7, 3584), torch.float32, torch.float32),
+    ((5, 33), torch.float32, torch.bfloat16),           # ragged d: scalar path
+    ((4, 40_000), torch.bfloat16, torch.float32),       # d beyond the registers
+])
+def test_rmsnorm_kernel(dev, shape, dtype, wdtype):
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+    w = (torch.randn(shape[-1], generator=g, device=dev) * 0.1).to(wdtype)
+    n0 = norm_ops.launches
+    got = norm_ops.rms_norm(x, w)
+    assert norm_ops.launches == n0 + 1
+    want = rms_norm_ref(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:  # sums taken in another order: ~1e-6 relative
+        torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-6)
+    else:
+        assert _within_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("S,H,KV,window,softcap,dtype", [
+    (8000, 16, 8, 4096, 50.0, torch.bfloat16),   # Gemma-2 9B local layer
+    (8000, 16, 8, 0, 50.0, torch.bfloat16),      # Gemma-2 9B global layer
+    (1000, 8, 1, 0, 0.0, torch.bfloat16),        # MQA (Gemma 2B)
+    (777, 8, 1, 300, 30.0, torch.float32),       # ragged S, window, float32
+])
+def test_flash_attention_kernel(dev, S, H, KV, window, softcap, dtype):
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, hd = (2, 256) if S == 8000 else (1, 256)
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(B, S, KV, H // KV, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+    n0 = attn_ops.launches
+    got = attn_ops.flash_attention(q, k, v, causal=True, window=window, softcap=softcap)
+    assert attn_ops.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    # the plain version in pieces of one batch row (its scores are
+    # B*H*S*S float32)
+    for b in range(B):
+        want = flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True,
+                                   window=window, softcap=softcap)
+        if dtype == torch.float32:  # online vs two-pass softmax, other sums
+            torch.testing.assert_close(got[b:b + 1], want, rtol=2e-5, atol=2e-5)
+        else:
+            assert _within_bf16_ulp(got[b:b + 1], want)
