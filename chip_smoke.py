@@ -11,7 +11,9 @@ its own:
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions, TF32 switched off for matmuls and convolutions, and the
    kernels' build (``nvcc`` into ``build/kernels/``, one process per
-   source, all started together);
+   source, all started together), and the count of ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions in the bf16 flash-attention
+   kernel's SASS (``cuobjdump --dump-sass``), which must not be 0;
 2. K1, the fused masked-Adam kernel, against its plain version at the main
    path's shape (8 sessions x 334,405 float32 coordinates, sessions at
    different step counts) and on two mixed-dtype stacks: p, m, v and u
@@ -38,11 +40,13 @@ its own:
    run's). For the timed run the RMSNorm (K3) and
    flash-attention (K4) launch counts are set to 0 just before and read
    just after, and must be 169 and 42 for the prefill and 169 per token
-   and 0 for decode; every logit must be finite. Then K3 and K4 are held
-   against their plain versions on synthetic inputs and on the run's own
-   data (layer 0's norm input; layer 0's local and layer 1's global q, k,
-   v), and timed at those shapes beside their bounds, their plain
-   versions and a PyTorch call (``F.rms_norm``; for K4 at softcap 0,
+   and 0 for decode, all 42 K4 launches on its bf16 (tensor-core) route;
+   every logit must be finite. Then K3 and K4 are held against their plain
+   versions on synthetic inputs (K4 in bf16 at head dims 64, 128 and 256
+   and in float32) and on the run's own data (layer 0's norm input; layer
+   0's local and layer 1's global q, k, v), and timed at those shapes
+   beside their bounds (K4's TFLOP/s and share of its bound printed), their
+   plain versions and a PyTorch call (``F.rms_norm``; for K4 at softcap 0,
    ``scaled_dot_product_attention``);
 6. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
    against its plain version, times and bound;
@@ -57,6 +61,8 @@ from __future__ import annotations
 import gzip
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -172,6 +178,26 @@ def device_ms(fn, n: int = 20, reps: int = 5) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def sass_counts(kernel: str = "flash_fwd_wgmma_kernel") -> dict:
+    """wgmma (HGMMA), TMA load (UTMALDG) and TMA store (UTMASTG)
+    instructions in the SASS of ``kernel``'s instantiations, from
+    ``cuobjdump --dump-sass`` of the built flash-attention library."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(build.lib_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {"functions": 0, "HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            counts["functions"] += inside
+        elif inside:
+            for op in ("HGMMA", "UTMALDG", "UTMASTG"):
+                counts[op] += op in line
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -549,9 +575,10 @@ def llm_path(dev):
     cold = serve(cfg, params, prompt, MAIN_DECODE, dev)
     check(cold["finite"], "every logit of the cold run finite")
     norm_ops.launches = 0
-    attn_ops.launches = 0
+    attn_ops.reset_launches()
     r = serve(cfg, params, prompt, MAIN_DECODE, dev)
-    launches = {"rms_norm": norm_ops.launches, "flash_attention": attn_ops.launches}
+    launches = {"rms_norm": norm_ops.launches, "flash_attention": attn_ops.launches,
+                "flash_attention_by_route": dict(attn_ops.launches_by_route)}
     peak = torch.cuda.max_memory_allocated()
     toks = r["tokens"]
     print(f"LLM prefill {r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_token']:.3f} "
@@ -559,7 +586,8 @@ def llm_path(dev):
           f"{cold['decode_ms_per_token']:.3f} ms); peak memory {peak / 2**30:.2f} GiB "
           f"({peak:,} bytes); all logits finite: {r['finite']}")
     print(f"LLM launches: prefill {r['launches']['prefill']}, decode "
-          f"{r['launches']['decode']} over {MAIN_DECODE} steps; total {launches}")
+          f"{r['launches']['decode']} over {MAIN_DECODE} steps; total {launches} "
+          f"(K4 by route: {launches['flash_attention_by_route']})")
     print(f"LLM first 16 generated tokens of row 0: {toks[0, :16].tolist()}")
     n_norms = 4 * cfg.num_layers + 1
     check(r["finite"], "every logit finite")
@@ -574,6 +602,9 @@ def llm_path(dev):
           f"decode launches {r['launches']['decode']}")
     check(launches["rms_norm"] == n_norms * (MAIN_DECODE + 1)
           and launches["flash_attention"] == cfg.num_layers, "LLM path launches")
+    check(launches["flash_attention_by_route"] == {"bf16_wgmma": cfg.num_layers,
+                                                   "f32_cuda_cores": 0},
+          f"K4 routes {launches['flash_attention_by_route']}")
     return cfg, params, prompt, r, cold, launches, peak
 
 
@@ -641,16 +672,19 @@ def k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops):
     scaled_dot_product_attention at softcap 0."""
     g = torch.Generator(device=dev).manual_seed(14)
     err = 0.0
-    for B, S, KV, G, dt, kw in (
-            (1, 777, 1, 8, torch.float32, dict(causal=True, window=300, softcap=30.0)),
-            (2, 1000, 8, 2, torch.bfloat16, dict(causal=False, window=0, softcap=0.0)),
-            (1, 300, 2, 2, torch.bfloat16, dict(causal=True, window=100, softcap=50.0))):
-        q = torch.randn(B, S, KV, G, 256, generator=g, device=dev).to(dt)
-        k = torch.randn(B, S, KV, 256, generator=g, device=dev).to(dt)
-        v = torch.randn(B, S, KV, 256, generator=g, device=dev).to(dt)
+    for B, S, KV, G, hd, dt, kw in (
+            (1, 777, 1, 8, 256, torch.float32, dict(causal=True, window=300, softcap=30.0)),
+            (2, 1000, 8, 2, 256, torch.bfloat16, dict(causal=False, window=0, softcap=0.0)),
+            (1, 300, 2, 2, 256, torch.bfloat16, dict(causal=True, window=100, softcap=50.0)),
+            (1, 1000, 1, 8, 64, torch.bfloat16, dict(causal=True, window=0, softcap=50.0)),
+            (1, 1000, 2, 2, 128, torch.bfloat16, dict(causal=True, window=300, softcap=0.0))):
+        q = torch.randn(B, S, KV, G, hd, generator=g, device=dev).to(dt)
+        k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dt)
+        v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dt)
         err = max(err, k4_compare(q, k, v, **kw))
-    print(f"K4 flash_attention within tolerance of its plain version on 3 synthetic "
-          f"cases (ragged S, MQA, non-causal, float32 at 2e-5); max abs err {err:.3e}")
+    print(f"K4 flash_attention within tolerance of its plain version on 5 synthetic "
+          f"cases (ragged S, MQA, non-causal, head dims 64/128/256 in bf16, float32 "
+          f"at 2e-5); max abs err {err:.3e}")
     cap = cfg.attn_logit_softcap
     kw_local = dict(causal=True, window=cfg.window_size, softcap=cap)
     kw_global = dict(causal=True, window=0, softcap=cap)
@@ -662,14 +696,14 @@ def k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops):
           f"{tuple(q.shape)}: max abs err {err_local:.3e} / {err_global:.3e}")
     B, S, KV, G, hd = q.shape
     H = KV * G
-    ms = device_ms(lambda: attn_ops.flash_attention(q, k, v, **kw_global), n=3, reps=3)
+    ms = device_ms(lambda: attn_ops.flash_attention(q, k, v, **kw_global), n=10, reps=5)
     local_ms = device_ms(lambda: attn_ops.flash_attention(*qkv_local, **kw_local),
-                         n=3, reps=3)
+                         n=10, reps=5)
     plain_ms = device_ms(lambda: attn_ref.flash_attention_ref(q, k, v, **kw_global),
                          n=1, reps=3)
     torch.cuda.empty_cache()
     nocap = dict(causal=True, window=0, softcap=0.0)
-    ms_nocap = device_ms(lambda: attn_ops.flash_attention(q, k, v, **nocap), n=3, reps=3)
+    ms_nocap = device_ms(lambda: attn_ops.flash_attention(q, k, v, **nocap), n=10, reps=5)
     q4 = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd).contiguous()
     k4, v4 = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -681,27 +715,33 @@ def k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops):
     check(sdpa_err <= 1e-2 * float(ours.float().abs().max()),
           f"K4 at softcap 0 vs scaled_dot_product_attention: {sdpa_err}")
     library_ms = device_ms(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True),
-                           n=3, reps=3)
+                           n=10, reps=5)
     del ours, lib, q4, k4, v4
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()  # q, o; k, v
     pairs = B * H * live_pairs(S, 0)
     pairs_local = B * H * live_pairs(S, cfg.window_size)
     bound_ms = 1e3 * max(nbytes / bw, 4 * hd * pairs / bf16_flops)
     local_bound_ms = 1e3 * max(nbytes / bw, 4 * hd * pairs_local / bf16_flops)
-    sfu_ms, sfu_local_ms = (1e3 * 2 * n / SFU_PER_S for n in (pairs, pairs_local))
+    # the softcap's exp and reciprocal and the softmax's exp per live score
+    sfu_ms, sfu_local_ms = (1e3 * 3 * n / SFU_PER_S for n in (pairs, pairs_local))
+    tflops, local_tflops = (4 * hd * n / t / 1e9 for n, t in ((pairs, ms),
+                                                             (pairs_local, local_ms)))
     print(f"K4 flash_attention {tuple(q.shape)} bf16, softcap {cap}: global layer "
-          f"kernel {ms:.3f} ms (bound {bound_ms:.4f} ms: {4 * hd * pairs / 1e12:.3f} "
-          f"TFLOP at {bf16_flops / 1e12:.0f} TFLOP/s bf16; tanh+exp {sfu_ms:.4f} ms), "
-          f"local layer {local_ms:.3f} ms (bound {local_bound_ms:.4f} ms; tanh+exp "
-          f"{sfu_local_ms:.4f} ms); plain (global) {plain_ms:.3f} ms")
+          f"kernel {ms:.3f} ms, {tflops:.1f} TFLOP/s, {bound_ms / ms:.1%} of its bound "
+          f"{bound_ms:.4f} ms ({4 * hd * pairs / 1e12:.3f} TFLOP at "
+          f"{bf16_flops / 1e12:.0f} TFLOP/s bf16; 3 special-function ops per live "
+          f"score {sfu_ms:.4f} ms); local layer {local_ms:.3f} ms, {local_tflops:.1f} "
+          f"TFLOP/s, {local_bound_ms / local_ms:.1%} of its bound {local_bound_ms:.4f} "
+          f"ms (special functions {sfu_local_ms:.4f} ms); plain (global) "
+          f"{plain_ms:.3f} ms")
     print(f"K4 at softcap 0 (global): kernel {ms_nocap:.3f} ms, "
           f"scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
-          f"{library_ms:.3f} ms (max abs diff {sdpa_err:.3e}); no single PyTorch call "
-          f"computes the softcapped attention")
+          f"{library_ms:.3f} ms ({ms_nocap / library_ms:.2f}x; max abs diff "
+          f"{sdpa_err:.3e}); no single PyTorch call computes the softcapped attention")
     return dict(err=max(err, err_local, err_global), ms=ms, local_ms=local_ms,
                 plain_ms=plain_ms, ms_softcap0=ms_nocap, library_ms=library_ms,
                 bound_ms=bound_ms, local_bound_ms=local_bound_ms,
-                transcendental_ms=sfu_ms)
+                transcendental_ms=sfu_ms, tflops=tflops, local_tflops=local_tflops)
 
 
 def main() -> None:
@@ -724,6 +764,12 @@ def main() -> None:
           f"{flops / 1e12} TFLOP/s float32")
     t_build = build.build_all()
     print(f"build: {t_build:.2f} s for {list(build.SOURCES)} into {build.BUILD_DIR}")
+    sass = sass_counts()
+    print(f"K4 bf16 kernel SASS (flash_fwd_wgmma_kernel, {sass['functions']} "
+          f"instantiations): HGMMA {sass['HGMMA']}, UTMALDG {sass['UTMALDG']}, "
+          f"UTMASTG {sass['UTMASTG']}")
+    check(sass["functions"] == 3 and sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+          f"the bf16 K4 kernel runs on wgmma and TMA: {sass}")
 
     # 2-3. kernels against their plain versions
     k1 = k1_phase(dev, bw, flops)
@@ -771,14 +817,19 @@ def main() -> None:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:89",
-             launches=llm_launches["flash_attention"], max_abs_err=k4["err"],
+             launches=llm_launches["flash_attention"],
+             launches_by_route=llm_launches["flash_attention_by_route"],
+             max_abs_err=k4["err"],
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by="operations", library_ms=k4["library_ms"],
              library_call="scaled_dot_product_attention(is_causal=True, "
                           "enable_gqa=True) at softcap 0, beside ms_softcap0",
              ms_softcap0=k4["ms_softcap0"], local_ms=k4["local_ms"],
              local_bound_ms=k4["local_bound_ms"],
-             transcendental_ms=k4["transcendental_ms"]),
+             transcendental_ms=k4["transcendental_ms"], tflops=k4["tflops"],
+             local_tflops=k4["local_tflops"], bound_share=k4["bound_ms"] / k4["ms"],
+             local_bound_share=k4["local_bound_ms"] / k4["local_ms"],
+             sass=sass),
     ]
     print(f"LLM summary: prefill {llm['prefill_ms']:.1f} ms (cold "
           f"{llm_cold['prefill_ms']:.1f}), decode {llm['decode_ms_per_token']:.3f} "

@@ -52,7 +52,7 @@ def kernel_times(prof):
 
 def group(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:  # flash_fwd_wgmma_kernel (bf16), flash_fwd_f32_kernel
         return "K4 flash attention"
     if "rms_norm_kernel" in name:
         return "K3 RMSNorm"

@@ -1,7 +1,8 @@
-// Forward flash attention with grouped KV heads, for prefill.
+// Forward flash attention with grouped KV heads, for prefill: one kernel
+// per dtype.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py
-//   flash_attention_4d.
+//   flash_attention_4d (its pallas_call at :110).
 //
 // What it computes, for every batch row b, query head h = kv*G + g and
 // query position i (keys j of KV head kv = h / G, never repeated):
@@ -10,45 +11,622 @@
 //   s_ij = -1e30 unless j < Skv, (i >= j if causal), (i - j < window if
 //          window > 0)
 //   o_i  = sum_j softmax_j(s_ij) v_j
-// in float32 with float32 accumulation, out in q's type (float32 or
-// bfloat16). The masked score is the finite -1e30 of both JAX versions,
-// not -inf: a row whose first visited tile is fully masked gets
-// m = -1e30 and p = exp(0) there, and the next live tile's correction
-// exp(-1e30 - m) wipes that out (with -inf it would be exp(nan)).
+// with float32 scores, softmax and accumulation, out in q's type. The
+// masked score is the finite -1e30 of both JAX versions, not -inf: a row
+// whose first visited tile is fully masked gets m = -1e30 and p = exp(0)
+// there, and the next live tile's correction exp(-1e30 - m) wipes that
+// out (with -inf it would be exp(nan)).
 //
-// What bounds it on an H100: operations. At the Gemma-2 9B prefill shape
-// (B=2, 16 q heads, 8 KV heads, S=8,000, head_dim 256) a global layer
-// does 4*B*H*hd*S(S+1)/2 = 1.05 TFLOP, 1.06 ms at the 989 TFLOP/s bf16
-// tensor-core rate; a local layer (window 4,096) 0.80 TFLOP. Each live
-// score also needs a tanh and an exp.
+// The two kernels are routes by dtype, not fallbacks of each other:
 //
-// What the design does about it, for now: it is simple and right, on the
-// CUDA cores in float32 (the tensor cores, wgmma and TMA are later work).
-// One block of 256 threads per (q tile of 64 rows, q head, batch row),
-// heaviest causal tiles first. The block keeps its q tile in shared
-// memory, and walks only the kv tiles of 64 rows that the causal and
-// window bounds leave live (the Pallas kernel's @pl.when(live)): each is
-// staged in shared memory as float32 (K and V with 16-byte loads), the
-// 64x64 scores are computed as 4x4 per thread with float4 reads laid out
-// to avoid bank conflicts, the online softmax runs per row across the 16
-// threads that share it (shuffles), and P goes through shared memory
-// into P.V. The 64 x hd output accumulator lives in registers, 4 rows x
-// hd/16 columns per thread. Shared memory is (2*64*(hd+4) + 64*hd +
-// 64*80) floats, 219 KB at hd 256, above the 48 KB default, so every
-// launch raises the kernel's dynamic shared-memory limit first. Ragged
-// ends (S not a multiple of 64) load zeros and are masked or not stored.
+// * bfloat16, the model's type: flash_fwd_wgmma_kernel, on the tensor
+//   cores (below).
+// * float32, which only tests and synthetic checks use: flash_fwd_f32_kernel,
+//   on the CUDA cores (further below).
+//
+// What bounds the bf16 kernel on an H100: operations. At the Gemma-2 9B
+// prefill shape (B=2, 16 q heads, 8 KV heads, S=8,000, head_dim 256) a
+// global layer does 4*B*H*hd*S(S+1)/2 = 1.05 TFLOP, 1.06 ms at the
+// 989 TFLOP/s bf16 tensor-core rate; a local layer (window 4,096) 0.80
+// TFLOP, 0.81 ms. Each live score also takes 3 special-function ops (the
+// softcap's tanh: an exp and a reciprocal; the softmax's exp): 0.73 ms for
+// a global layer at 16 per SM per clock. What the design does about each:
+//
+// * Both products run on wgmma (bf16 in, float32 accumulation). One block
+//   of 2 warpgroups (256 threads) takes one (128-row q tile, q head, batch
+//   row), heaviest causal tiles first across all heads. Each warpgroup
+//   owns 64 q rows: the 64 x hd float32 O accumulator, the 64x64 S tile
+//   and P live in registers, 250 a thread at hd 256. There is no producer
+//   warp: with one (288 threads) or a producer warpgroup (384, setmaxnreg
+//   24/240) ptxas caps the consumers at 168-184 registers (9 or 12 warps
+//   share an SM's 4 register files; setmaxnreg did not lift it), spills,
+//   and serialises every wgmma. At 256 threads each may take 255.
+// * Q (128 x hd) is loaded once; K and V tiles of 64 kv rows go through a
+//   ring of stages in shared memory (2 at hd 256, 4 below). K and V each
+//   have a "full" mbarrier per stage, which TMA completes by bytes, and a
+//   counter of the warps done with that operand (K after S = Q K^T, V
+//   after P V). Thread 0 issues the first loads; the last of the 8 warps
+//   to finish with a stage refills it with the tile kStages ahead, so no
+//   warp ever waits for a slot. Loads run ahead of the products, and no
+//   thread spends registers on a copy. The two
+//   warpgroups meet only at the full barriers, so one's softmax runs while
+//   the other's products hold the tensor cores.
+// * TMA reads the model's strided (B, S, KV, G, hd) and (B, S, KV, hd)
+//   tensors through 5-D and 4-D tensor maps (no transpose, no copy), in
+//   boxes of 64 hd columns (128 bytes) with the 128-byte swizzle that
+//   wgmma reads without bank conflicts. Rows past S are filled with zeros
+//   (the ragged last tile: 8,000 = 62.5 x 128) and masked.
+// * S = Q K^T: m64n64k16 with A (Q) and B (K) from shared memory, both
+//   K-major (hd contiguous). q and k are bf16, so every product is exact,
+//   but the tensor cores' float32 sums do not round to nearest: chained
+//   over the 16 k-steps of hd 256 (or over 4 or 2), S drifted enough on
+//   rows of the Gemma-2 prefill's own inputs whose sums nearly cancel to
+//   miss the contract. So each k-step starts from zero, two in flight,
+//   and the CUDA cores add them up, rounding to nearest.
+// * The softmax runs in registers with the plain version's arithmetic:
+//   s * hd^-0.5, softcap * tanhf(s / softcap), the -1e30 mask, the row max
+//   and sum over the 4 lanes that share a row, expf, O's correction; l is
+//   summed from the float32 p. Faster forms (tanh as 1 - 2/(1 + e^{2y}),
+//   scores in log2 units) missed the one-bf16-ulp + 1e-5 contract on
+//   those rows.
+// * P V keeps P exact: P is split in registers into bf16 P_hi, P_mid and
+//   P_lo (3 x 8 bits hold float32's 24), and each goes through wgmma with
+//   A from registers (the S accumulator's layout is the A operand's) and B
+//   the V tile, MN-major (hd contiguous), read with the transpose bit. A
+//   two-way split (2^-18 relative error) missed the contract on the same
+//   rows. The three products make 2x the function's operations, a 2.12 ms
+//   ceiling for a global layer. Each tile's P V is summed from zero, 64
+//   hd columns at a time, and added to O * corr on the CUDA cores with one
+//   fma: O chained on the tensor cores over a global row's thousands of
+//   keys missed the contract too.
+// * Only the kv tiles that the causal and window bounds leave live are
+//   visited; the per-element mask runs only on tiles that need it.
+// * Epilogue: each warpgroup divides by max(l, 1e-30), rounds to bf16 into
+//   its own 64 rows of the Q tile in shared memory (same swizzle) and
+//   stores them with TMA, which skips rows >= S.
+//
+// Tried and dropped: FlashAttention-3's ping-pong, the warpgroups taking
+// turns on the tensor cores at named barriers (no faster here), and
+// issuing S_{i+1} before the softmax of S_i (ptxas then serialised every
+// wgmma, C7513; with the per-step S sums there are no registers left for
+// it at hd 256). Not done yet: a persistent grid, clusters with TMA
+// multicast of K and V for the q heads of a KV group, fp8.
+#include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;    // q rows per block
-constexpr int kBK = 64;    // kv rows per tile
-constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
+constexpr int kBK = 64;  // kv rows per tile (both kernels)
 
-enum Dtype : int { kF32 = 0, kBF16 = 1 };
+// ===========================================================================
+// bfloat16: flash_fwd_wgmma_kernel
+// ===========================================================================
+
+constexpr int kTcBQ = 128;            // q rows per block (2 warpgroups x 64)
+constexpr int kTcThreads = 256;       // 2 warpgroups of 64 q rows each
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct TcParams {
+  int Sq, Skv, G, H;
+  int causal, window;
+  float scale;    // hd^-0.5
+  float softcap;  // 0: none
+  float inv_cap;  // 1 / softcap
+};
+
+template <int HD>
+struct TcLayout {  // shared memory, in bytes from a 1024-aligned base
+  static constexpr int kChunks = HD / 64;           // 128-byte boxes per row
+  static constexpr int kStages = HD == 256 ? 2 : 4;
+  static constexpr int kQChunk = kTcBQ * 128;       // 128 rows x 128 B
+  static constexpr int kKVChunk = kBK * 128;        // 64 rows x 128 B
+  static constexpr int kTile = kChunks * kKVChunk;  // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kChunks * kQChunk;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kCount = kBar + 8 * (1 + 2 * kStages);  // u32 counters
+  static constexpr int kBytes = kCount + 4 * 2 * kStages;
+  static constexpr size_t kAlloc = kBytes + 1024;   // room to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed. A
+// wait that never ends (a fault in the pipeline) traps after ~2^28 polls,
+// so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint32_t polls = 0;
+  do {
+    if (++polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Waits until at most N of this warpgroup's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous instructions that own them.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_OUT32(d)                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),       \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),          \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),          \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),          \
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64x64, float32) = A B (+ d if accumulate): A 64x16 and B 64x16 (N x K)
+// bf16 from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64x64, float32) = A B (+ d if accumulate): A 64x16 bf16 from
+// registers, B 16x64 (K x N) bf16 from shared memory, MN-major (the
+// transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_OUT32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// 2^x on the special-function unit (relative error ~2^-22)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Two warpgroups of 64 q rows each; see the note at the top. The wgmma
+// accumulator layout, for thread t of a warpgroup (warp w = t/32, lane):
+// register 4j + 2r + c holds row 16w + lane/4 + 8r, column
+// 8j + 2(lane%4) + c (r, c in {0, 1}).
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to,
+                           const TcParams p) {
+  using L = TcLayout<HD>;
+  constexpr int kC = L::kChunks;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  // per stage: K and V full (+ 8 * stage); warps done with K and V (+ 4 * stage)
+  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * L::kStages;
+  const uint32_t done_k = base + L::kCount, done_v = done_k + 4 * L::kStages;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
+  const int kvh = h / p.G, g = h % p.G;
+  const int q0 = qt * kTcBQ;
+  // live kv tiles: [lo, hi)
+  const int q_last = min(q0 + kTcBQ, p.Sq) - 1;
+  int hi = (p.Skv + kBK - 1) / kBK, lo = 0;
+  if (p.causal) hi = min(hi, q_last / kBK + 1);
+  if (p.window > 0) {
+    const int kmin = q0 - p.window + 1;  // first key any row here sees
+    if (kmin > 0) lo = kmin / kBK;
+  }
+  const int n_tiles = hi - lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      asm volatile("st.shared.u32 [%0], 0;" ::"r"(done_k + 4 * s) : "memory");
+      asm volatile("st.shared.u32 [%0], 0;" ::"r"(done_v + 4 * s) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the K (V) tile at loop step i into stage i % kStages, by TMA
+  auto load_k = [&](int i) {
+    const int st = i % L::kStages;
+    mbar_expect_tx(bar_k + 8 * st, L::kTile);
+    for (int c = 0; c < kC; ++c)
+      tma_load_4d(sK + st * L::kTile + c * L::kKVChunk, &tk, bar_k + 8 * st,
+                  64 * c, kvh, (lo + i) * kBK, b);
+  };
+  auto load_v = [&](int i) {
+    const int st = i % L::kStages;
+    mbar_expect_tx(bar_v + 8 * st, L::kTile);
+    for (int c = 0; c < kC; ++c)
+      tma_load_4d(sV + st * L::kTile + c * L::kKVChunk, &tv, bar_v + 8 * st,
+                  64 * c, kvh, (lo + i) * kBK, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, kC * L::kQChunk);
+    for (int c = 0; c < kC; ++c)
+      tma_load_5d(sQ + c * L::kQChunk, &tq, bar_q, 64 * c, g, kvh, q0, b);
+    for (int i = 0; i < min(n_tiles, L::kStages); ++i) {
+      load_k(i);
+      load_v(i);
+    }
+  }
+
+  const int w = threadIdx.x / 128;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int qc0 = q0 + 64 * w;  // this warpgroup's first row
+  const int row0 = qc0 + 16 * warp + lane / 4;  // and row0 + 8
+  const int col = 2 * (lane % 4);
+  const uint32_t sQw = sQ + w * 64 * 128;  // its 64 rows of each Q chunk
+
+  float o[kC][32];
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[c][j] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float sc[32] = {};        // S of the tile in hand, then its p
+  float part[2][32];        // S of one k-step
+  float pv[32];             // P V of one 64-column chunk
+  uint32_t ph[16], pm[16], pl[16];  // its P = P_hi + P_mid + P_lo
+
+  // After S_i (P_i V_i) each warp counts itself done with the stage's K
+  // (V); the last of the 8 refills it with tile i + kStages. No one waits.
+  auto release = [&](int i, uint32_t done, bool is_k) {
+    if (lane != 0) return;
+    const uint32_t addr = done + 4 * (i % L::kStages);
+    uint32_t before;
+    asm volatile("atom.shared.add.u32 %0, [%1], 1;" : "=r"(before) : "r"(addr) : "memory");
+    if (before % 8 != 7 || i + L::kStages >= n_tiles) return;  // 8 per use
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (is_k)
+      load_k(i + L::kStages);
+    else
+      load_v(i + L::kStages);
+  };
+
+  mbar_wait(bar_q, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % L::kStages;
+    const uint32_t phase = (i / L::kStages) & 1;
+    const int k0 = (lo + i) * kBK;
+
+    // S = Q K^T: each k-step of 16 hd columns from zero on the tensor
+    // cores (two in flight), summed on the CUDA cores, rounding to nearest
+    mbar_wait(bar_k + 8 * st, phase);
+    const uint64_t dq = sw128_desc(sQw, 16, 1024);
+    const uint64_t dk = sw128_desc(sK + st * L::kTile, 16, 1024);
+    auto issue_s = [&](int ks, float (&d)[32]) {  // + byte offset / 16
+      const int c = ks / 4, kk = ks % 4;
+      wgmma_fence();
+      wgmma_ss(d, dq + ((c * L::kQChunk + kk * 32) >> 4),
+               dk + ((c * L::kKVChunk + kk * 32) >> 4), 0);
+      wgmma_commit();
+    };
+    reg_fence(sc);
+    issue_s(0, sc);
+    issue_s(1, part[1]);
+    wgmma_wait<1>();
+    reg_fence(sc);
+    issue_s(2, part[0]);
+#pragma unroll
+    for (int ks = 1; ks < HD / 16; ++ks) {
+      if (ks + 1 < HD / 16)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      float (&d)[32] = part[ks % 2];
+      reg_fence(d);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = __fadd_rn(sc[j], d[j]);
+      if (ks + 2 < HD / 16) issue_s(ks + 2, d);
+    }
+    release(i, done_k, true);
+
+    // scale and softcap as the plain version does (see the note at the top)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] *= p.scale;
+    if (p.softcap != 0.0f) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = p.softcap * tanhf(sc[j] * p.inv_cap);
+    }
+    const bool need_mask = k0 + kBK > p.Skv || (p.causal && k0 + kBK - 1 > qc0) ||
+                           (p.window > 0 && qc0 + 63 - k0 >= p.window);
+    if (need_mask) {
+      // key - row and the keys left, for register 0; register j adds
+      // constants
+      const int d0 = k0 + col - row0;
+      const int left = p.Skv - k0 - col;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int dk = 8 * (j / 4) + (j % 2);  // key offset
+        const int d = d0 + dk - 8 * ((j / 2) % 2);  // key - row
+        bool live = dk < left;
+        if (p.causal) live = live && d <= 0;
+        if (p.window > 0) live = live && -d < p.window;
+        if (!live) sc[j] = kNegInf;
+      }
+    }
+
+    // online softmax; rows are shared by the 4 lanes of a quad
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if ((j / 2) % 2 == r) mx = fmaxf(mx, sc[j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      corr[r] = ex2((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+    }
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int r = (j / 2) % 2;
+      sc[j] = ex2((sc[j] - m[r]) * kLog2e);
+      rs[r] += sc[j];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * corr[r] + rs[r];
+    }
+
+    // P = P_hi + P_mid + P_lo in bf16, exactly (3 x 8 bits hold float32's
+    // 24), laid out as wgmma's A fragments: for the k-step of kv columns
+    // 16kk.., registers 8kk + 2u, 8kk + 2u + 1 make fragment register u
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      float2 r = make_float2(sc[2 * u], sc[2 * u + 1]);
+      const __nv_bfloat162 hv = __float22bfloat162_rn(r);
+      const float2 hf = __bfloat1622float2(hv);
+      r = make_float2(r.x - hf.x, r.y - hf.y);
+      const __nv_bfloat162 mv = __float22bfloat162_rn(r);
+      const float2 mf = __bfloat1622float2(mv);
+      ph[u] = bf16x2_bits(hv);
+      pm[u] = bf16x2_bits(mv);
+      pl[u] = bf16x2_bits(__floats2bfloat162_rn(r.x - mf.x, r.y - mf.y));
+    }
+
+    // O = O * corr + P V, 64 hd columns at a time: the tensor cores sum
+    // this tile's P V from zero, and the CUDA cores add it to O with one
+    // fma (see the note at the top)
+    mbar_wait(bar_v + 8 * st, phase);
+    const uint64_t dv = sw128_desc(sV + st * L::kTile, L::kKVChunk, 1024);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      reg_fence(pv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = dv + ((c * L::kKVChunk + kk * 16 * 128) >> 4);
+        wgmma_rs(pv, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], db,
+                 kk > 0);
+        wgmma_rs(pv, pm[4 * kk], pm[4 * kk + 1], pm[4 * kk + 2], pm[4 * kk + 3], db, 1);
+        wgmma_rs(pv, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(pv);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) o[c][j] = __fmaf_rn(o[c][j], corr[(j / 2) % 2], pv[j]);
+    }
+    release(i, done_v, false);
+  }
+
+  // O / l in bf16 into this warpgroup's rows of the Q tile (the same
+  // 128-byte swizzle: 16-byte unit j of row r sits at unit j ^ (r % 8)),
+  // then one TMA store per chunk, which skips rows >= Sq
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.0f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * warp + lane / 4 + 8 * r;
+        const uint32_t addr = sQw + c * L::kQChunk + row * 128 +
+                              ((j ^ (row % 8)) * 16) + col * 2;
+        const uint32_t val = bf16x2_bits(__floats2bfloat162_rn(
+            o[c][4 * j + 2 * r] * inv[r], o[c][4 * j + 2 * r + 1] * inv[r]));
+        asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(val) : "memory");
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + w) : "memory");
+  if (t == 0 && qc0 < p.Sq) {
+    for (int c = 0; c < kC; ++c)
+      tma_store_5d(&to, sQw + c * L::kQChunk, 64 * c, g, kvh, qc0, b);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, so the
+// library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dims (innermost first; strides in elements
+// for dims 1..rank-1), 128-byte swizzle, zeros out of bounds.
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, int rank,
+                       const long long* dims, const long long* strides,
+                       const uint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  cuuint64_t gdim[5], gstride[4];
+  cuuint32_t ebox[5], estride[5];
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    ebox[i] = box[i];
+    estride[i] = 1;
+  }
+  for (int i = 0; i < rank - 1; ++i)
+    gstride[i] = static_cast<cuuint64_t>(strides[i]) * sizeof(__nv_bfloat16);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(ptr), gdim, gstride, ebox, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                         const CUtensorMap& tv, const CUtensorMap& to,
+                         const TcParams& p, int B, cudaStream_t stream) {
+  auto kern = flash_fwd_wgmma_kernel<HD>;
+  constexpr size_t bytes = TcLayout<HD>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.H * B, (p.Sq + kTcBQ - 1) / kTcBQ);
+  kern<<<grid, kTcThreads, bytes, stream>>>(tq, tk, tv, to, p);
+  return cudaGetLastError();
+}
+
+// ===========================================================================
+// float32: flash_fwd_f32_kernel, on the CUDA cores
+// ===========================================================================
+//
+// One block of 256 threads per (q tile of 64 rows, q head, batch row),
+// heaviest causal tiles first. The block keeps its q tile in shared
+// memory and walks only the live kv tiles of 64 rows: each is staged in
+// shared memory (K and V with 16-byte loads), the 64x64 scores are
+// computed as 4x4 per thread with float4 reads laid out to avoid bank
+// conflicts, the online softmax runs per row across the 16 threads that
+// share it (shuffles), and P goes through shared memory into P.V. The
+// 64 x hd accumulator lives in registers, 4 rows x hd/16 columns per
+// thread. Shared memory is (2*64*(hd+4) + 64*hd + 64*80) floats, 219 KB at
+// hd 256. Ragged ends load zeros and are masked or not stored.
+
+constexpr int kBQ = 64;  // q rows per block
+constexpr int kThreads = 256;
 
 template <int HD>
 struct Layout {              // shared memory, in floats
@@ -63,7 +641,7 @@ struct Layout {              // shared memory, in floats
 };
 
 struct Params {
-  const void* q; const void* k; const void* v; void* o;
+  const float* q; const float* k; const float* v; float* o;
   long long q_sb, q_ss, q_skv, q_sg;   // strides in elements
   long long k_sb, k_ss, k_skv;
   long long v_sb, v_ss, v_skv;
@@ -73,51 +651,30 @@ struct Params {
   float softcap, scale;
 };
 
-template <typename T>
-__device__ __forceinline__ void to_float(const uint4& raw,
-                                         float (&x)[16 / sizeof(T)]) {
-  if constexpr (sizeof(T) == 4) {
-    const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) x[j] = f[j];
-  } else {
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) x[j] = __bfloat162float(h[j]);
-  }
-}
-
 // Rows [r0, r0+64) of an (S, HD) matrix with row stride `ss` (elements)
-// into shared memory as float32 rows of stride `ds`; rows >= S are zeros.
-// All loads are issued before any store, so they are in flight together.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
+// into shared memory with row stride `ds`; rows >= S are zeros. All loads
+// are issued before any store, so they are in flight together.
+template <int HD>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
                                           long long ss, int r0, int S,
                                           float* dst, int ds) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = HD / kVec;
+  constexpr int kPerRow = HD / 4;
   constexpr int kIters = 64 * kPerRow / kThreads;
   static_assert(64 * kPerRow % kThreads == 0, "tile must split evenly");
-  uint4 raw[kIters];
+  float4 raw[kIters];
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
     const int c = it * kThreads + threadIdx.x;
-    const int r = c / kPerRow, d = (c % kPerRow) * kVec;
-    raw[it] = r0 + r < S ? *reinterpret_cast<const uint4*>(
+    const int r = c / kPerRow, d = (c % kPerRow) * 4;
+    raw[it] = r0 + r < S ? *reinterpret_cast<const float4*>(
                                src + static_cast<long long>(r0 + r) * ss + d)
-                         : make_uint4(0u, 0u, 0u, 0u);
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
     const int c = it * kThreads + threadIdx.x;
-    const int r = c / kPerRow, d = (c % kPerRow) * kVec;
-    float x[kVec];
-    to_float<T>(raw[it], x);
-    float* o = dst + r * ds + d;
-#pragma unroll
-    for (int j = 0; j < kVec; j += 4)
-      *reinterpret_cast<float4*>(o + j) =
-          make_float4(x[j], x[j + 1], x[j + 2], x[j + 3]);
+    const int r = c / kPerRow, d = (c % kPerRow) * 4;
+    *reinterpret_cast<float4*>(dst + r * ds + d) = raw[it];
   }
 }
 
@@ -125,21 +682,8 @@ __device__ __forceinline__ float comp(const float4& a, int u) {
   return u == 0 ? a.x : u == 1 ? a.y : u == 2 ? a.z : a.w;
 }
 
-template <typename T>
-__device__ __forceinline__ void store4(T* p, const float (&x)[4]) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  } else {
-    uint2 r;
-    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&r);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) h[j] = __float2bfloat16_rn(x[j]);
-    *reinterpret_cast<uint2*>(p) = r;
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(Params p) {
   using L = Layout<HD>;
   constexpr int kNJ = HD / 64;  // float4 column groups per thread
   extern __shared__ float4 smem4[];
@@ -153,13 +697,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / p.G, g = h % p.G;
   const int q0 = qt * kBQ;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + kvh * p.q_skv +
-                g * p.q_sg;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_skv;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_skv;
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + kvh * p.o_skv + g * p.o_sg;
+  const float* qb = p.q + b * p.q_sb + kvh * p.q_skv + g * p.q_sg;
+  const float* kb = p.k + b * p.k_sb + kvh * p.k_skv;
+  const float* vb = p.v + b * p.v_sb + kvh * p.v_skv;
+  float* ob = p.o + b * p.o_sb + kvh * p.o_skv + g * p.o_sg;
 
-  load_tile<T, HD>(qb, p.q_ss, q0, p.Sq, Qs, L::kQS);
+  load_tile<HD>(qb, p.q_ss, q0, p.Sq, Qs, L::kQS);
 
   // thread (ty, tx): q rows ty + 16i and, per tile, kv columns tx + 16j
   // (i, j < 4); output columns 4tx + 64jj .. +3 (jj < kNJ)
@@ -188,8 +731,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's Ks, Vs and Ps are read
-    load_tile<T, HD>(kb, p.k_ss, k0, p.Skv, Ks, L::kQS);
-    load_tile<T, HD>(vb, p.v_ss, k0, p.Skv, Vs, HD);
+    load_tile<HD>(kb, p.k_ss, k0, p.Skv, Ks, L::kQS);
+    load_tile<HD>(vb, p.v_ss, k0, p.Skv, Vs, HD);
     __syncthreads();
 
     float s[4][4];
@@ -293,17 +836,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < kNJ; ++jj) {
-      float x[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) x[c] = __fdiv_rn(acc[i][jj][c], denom);
-      store4<T>(ob + static_cast<long long>(qi) * p.o_ss + 4 * tx + 64 * jj, x);
+      float4 x;
+      x.x = __fdiv_rn(acc[i][jj][0], denom);
+      x.y = __fdiv_rn(acc[i][jj][1], denom);
+      x.z = __fdiv_rn(acc[i][jj][2], denom);
+      x.w = __fdiv_rn(acc[i][jj][3], denom);
+      *reinterpret_cast<float4*>(ob + static_cast<long long>(qi) * p.o_ss + 4 * tx +
+                                 64 * jj) = x;
     }
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const Params& p, int B, int H, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, HD>;
+template <int HD>
+cudaError_t launch_f32(const Params& p, int B, int H, cudaStream_t stream) {
+  auto kern = flash_fwd_f32_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Layout<HD>::kBytes));
@@ -313,44 +859,85 @@ cudaError_t launch(const Params& p, int B, int H, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, int hd, int B, int H, cudaStream_t s) {
-  switch (hd) {
-    case 64: return launch<T, 64>(p, B, H, s);
-    case 128: return launch<T, 128>(p, B, H, s);
-    case 256: return launch<T, 256>(p, B, H, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// q, o: (B, Sq, KV, G, hd); k, v: (B, Skv, KV, hd); all of dtype `dt`
-// (0 float32, 1 bfloat16), device pointers, 16-byte aligned, the last
-// axis contiguous. `strides` holds 14 element strides: q's (b, s, kv, g),
-// k's (b, s, kv), v's (b, s, kv), o's (b, s, kv, g); each a multiple of
-// 16 bytes. hd is 64, 128 or 256. Launches on `stream` of CUDA device
-// `device` and returns the launch's cudaError_t (0 on success).
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dt, int hd, int B, int Sq, int Skv, int KV, int G,
-                        const long long* strides, int causal, int window,
-                        float softcap, float scale, int device,
-                        void* stream) {
+// Both entry points take q, o: (B, Sq, KV, G, hd); k, v: (B, Skv, KV, hd),
+// device pointers, 16-byte aligned, the last axis contiguous. `strides`
+// holds 14 element strides: q's (b, s, kv, g), k's (b, s, kv), v's (b, s,
+// kv), o's (b, s, kv, g); each a multiple of 16 bytes. hd is 64, 128 or
+// 256. They launch on `stream` of CUDA device `device` and return the
+// launch's cudaError_t (0 on success).
+
+// bfloat16 tensors: the tensor-core kernel. Its tensor maps are encoded
+// here at every call.
+int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                             int hd, int B, int Sq, int Skv, int KV, int G,
+                             const long long* strides, int causal, int window,
+                             float softcap, float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (Sq == 0 || B == 0) return 0;
+  if (hd != 64 && hd != 128 && hd != 256) return cudaErrorInvalidValue;
+  const long long* st = strides;
+  const long long q_dims[5] = {hd, G, KV, Sq, B};
+  const long long q_str[4] = {st[3], st[2], st[1], st[0]};
+  const long long k_dims[4] = {hd, KV, Skv, B};
+  const long long k_str[3] = {st[6], st[5], st[4]};
+  const long long v_str[3] = {st[9], st[8], st[7]};
+  const long long o_str[4] = {st[13], st[12], st[11], st[10]};
+  const uint32_t q_box[5] = {64, 1, 1, kTcBQ, 1};
+  const uint32_t kv_box[4] = {64, 1, kBK, 1};
+  const uint32_t o_box[5] = {64, 1, 1, 64, 1};
+  CUtensorMap tq, tk, tv, to;
+  if ((err = encode_map(&tq, q, 5, q_dims, q_str, q_box)) != cudaSuccess ||
+      (err = encode_map(&tk, k, 4, k_dims, k_str, kv_box)) != cudaSuccess ||
+      (err = encode_map(&tv, v, 4, k_dims, v_str, kv_box)) != cudaSuccess ||
+      (err = encode_map(&to, o, 5, q_dims, o_str, o_box)) != cudaSuccess)
+    return static_cast<int>(err);
+  TcParams p;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.G = G;
+  p.H = KV * G;
+  p.causal = causal;
+  p.window = window;
+  p.scale = scale;
+  p.softcap = softcap;
+  p.inv_cap = softcap != 0.0f ? 1.0f / softcap : 0.0f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64: err = launch_wgmma<64>(tq, tk, tv, to, p, B, s); break;
+    case 128: err = launch_wgmma<128>(tq, tk, tv, to, p, B, s); break;
+    default: err = launch_wgmma<256>(tq, tk, tv, to, p, B, s); break;
+  }
+  return static_cast<int>(err);
+}
+
+// float32 tensors: the CUDA-core kernel.
+int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                            int hd, int B, int Sq, int Skv, int KV, int G,
+                            const long long* strides, int causal, int window,
+                            float softcap, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Sq == 0 || B == 0) return 0;
   const long long* st = strides;
-  Params p{q, k, v, o,
+  Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+           static_cast<const float*>(v), static_cast<float*>(o),
            st[0], st[1], st[2], st[3],
            st[4], st[5], st[6],
            st[7], st[8], st[9],
            st[10], st[11], st[12], st[13],
            Sq, Skv, G, causal, window, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = dt == kF32 ? dispatch<float>(p, hd, B, KV * G, s)
-                   : dispatch<__nv_bfloat16>(p, hd, B, KV * G, s);
+  switch (hd) {
+    case 64: err = launch_f32<64>(p, B, KV * G, s); break;
+    case 128: err = launch_f32<128>(p, B, KV * G, s); break;
+    case 256: err = launch_f32<256>(p, B, KV * G, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

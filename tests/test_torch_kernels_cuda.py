@@ -5,7 +5,10 @@ at first use) and skip on a host without one; on the GPU host run
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 K1 (masked Adam) must equal its plain version bit for bit; K2 (top-k
-threshold bits) exactly, with byte-identical masks.
+threshold bits) exactly, with byte-identical masks; K3 (RMSNorm) and K4
+(flash attention) within one bf16 ulp (+1e-5) in bfloat16, and within 2e-6
+and 2e-5 in float32. K4's bfloat16 cases go through its tensor-core
+kernel, its float32 cases through its CUDA-core kernel.
 """
 import numpy as np
 import pytest
@@ -180,3 +183,58 @@ def test_flash_attention_kernel(dev, S, H, KV, window, softcap, dtype):
             torch.testing.assert_close(got[b:b + 1], want, rtol=2e-5, atol=2e-5)
         else:
             assert _within_bf16_ulp(got[b:b + 1], want)
+
+
+# bfloat16 K4 on the tensor-core route, off the Gemma-2 9B shape: other head
+# dims, ragged S, a row whose first visited tile is fully masked,
+# non-causal, MQA, and large inputs (q ~ N(0, 42^2), k and v ~ N(0, 21^2):
+# scores of ~10^4 before the scale, a mostly saturated softcap). The rare
+# rows whose sums nearly cancel, where a kernel with S chained on the
+# tensor cores missed the contract, are checked by chip_smoke.py on the
+# Gemma-2 prefill's own layer inputs.
+@pytest.mark.parametrize("B,S,KV,G,hd,causal,window,softcap,qs,kvs", [
+    (1, 1000, 2, 2, 64, True, 0, 50.0, 1, 1),      # hd 64
+    (1, 1000, 2, 2, 128, True, 300, 30.0, 1, 1),   # hd 128, window
+    (1, 1000, 2, 2, 256, True, 0, 50.0, 1, 1),     # S not a multiple of 128
+    (1, 96, 2, 2, 256, True, 20, 50.0, 1, 1),      # a row's first live tile fully masked
+    (2, 1000, 2, 2, 256, False, 0, 0.0, 1, 1),     # non-causal
+    (1, 1000, 1, 8, 256, True, 0, 0.0, 1, 1),      # MQA
+    (2, 3000, 2, 2, 256, True, 0, 50.0, 42, 21),   # Gemma-2's input magnitudes
+])
+def test_flash_attention_bf16_route(dev, B, S, KV, G, hd, causal, window, softcap,
+                                    qs, kvs):
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = (torch.randn(B, S, KV, G, hd, generator=g, device=dev) * qs).to(torch.bfloat16)
+    k = (torch.randn(B, S, KV, hd, generator=g, device=dev) * kvs).to(torch.bfloat16)
+    v = (torch.randn(B, S, KV, hd, generator=g, device=dev) * kvs).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0, r0 = attn_ops.launches, attn_ops.launches_by_route["bf16_wgmma"]
+    got = attn_ops.flash_attention(q, k, v, **kw)
+    assert attn_ops.launches == n0 + 1
+    assert attn_ops.launches_by_route["bf16_wgmma"] == r0 + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    assert _within_bf16_ulp(got, flash_attention_ref(q, k, v, **kw))
+
+
+def test_flash_attention_bf16_rejects_strides_tma_cannot_take(dev):
+    """A row stride that is not a multiple of 16 bytes, or a stride of 0
+    (an expanded batch), has no tensor map: the wrapper raises before any
+    launch."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    q = torch.zeros(1, 64, 2, 2, 64, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=dev)
+    padded = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16, device=dev)[..., :64]
+    expanded = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16,
+                           device=dev).expand(2, 64, 2, 64)
+    n0 = attn_ops.launches
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(q, padded, k)
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(q.expand(2, *q.shape[1:]), expanded, expanded)
+    assert attn_ops.launches == n0
