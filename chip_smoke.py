@@ -19,11 +19,14 @@ its own:
    different step counts) and on two mixed-dtype stacks: p, m, v and u
    must be equal bit for bit; then its time, the plain version's and the
    bound;
-3. K2, the top-k threshold kernel, against its plain version at the main
-   path's shape and on the JAX package's edge cases (mixed signs, all
-   negative, ties, subnormals, zeros) plus NaN and infinities: threshold
-   bits exact, masks byte-identical (also to a sort's threshold); then its
-   time, the plain version's, ``torch.kthvalue``'s and the bound;
+3. K2, the top-k threshold kernel (a radix select over many blocks per
+   session; the grid is printed and must hold more than one block per
+   session), against its plain version at the main path's shape, at 3
+   sessions, at 2 sessions above 4M coordinates, and on the JAX package's
+   edge cases (mixed signs, all negative, ties, subnormals, zeros) plus
+   NaN and infinities: threshold bits exact, masks byte-identical (also
+   to a sort's threshold); then its time, the plain version's,
+   ``torch.kthvalue``'s and the bound;
 4. the main path: 8 AMS sessions of the width-4.0 segmentation student on
    8 seeded synthetic videos at 256x256, batch 8, K=20, gamma=0.05,
    through 3 fused phases (the first with random masks, then two
@@ -44,10 +47,12 @@ its own:
    every logit must be finite. Then K3 and K4 are held against their plain
    versions on synthetic inputs (K4 in bf16 at head dims 64, 128 and 256
    and in float32) and on the run's own data (layer 0's norm input; layer
-   0's local and layer 1's global q, k, v), and timed at those shapes
-   beside their bounds (K4's TFLOP/s and share of its bound printed), their
-   plain versions and a PyTorch call (``F.rms_norm``; for K4 at softcap 0,
-   ``scaled_dot_product_attention``);
+   0's local and layer 1's global q, k, v; for K3 also its last position,
+   a decode step's shape), and timed at those shapes beside their bounds
+   (K4's TFLOP/s and share of its bound printed), their plain versions and
+   a PyTorch call (``F.rms_norm``; for K4 at softcap 0,
+   ``scaled_dot_product_attention``); K3 must take its warp-per-row
+   variant at the prefill's shape and its split-row one at the decode's;
 6. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
    against its plain version, times and bound;
 7. the last line, ``{"ok": true, "device": {...}}``.
@@ -335,10 +340,22 @@ def k2_phase(dev, bw, flops):
         err = max(err, k2_compare(u, 0.07))
         print(f"K2 exact against plain and sort: case {case}")
     g = torch.Generator(device=dev).manual_seed(12)
+    # 3 sessions at the student's size; 2 sessions above 4M coordinates
+    for u in ({"w": torch.randn(3, N_PARAMS, generator=g, device=dev) * 1e-3},
+              {"a": torch.randn(2, 3_000_001, generator=g, device=dev),
+               "b": torch.randn(2, 1_700, 1_000, generator=g, device=dev)}):
+        err = max(err, k2_compare(u, FRAC))
+        bits, n = topk_ops.abs_bits_buffer(u)
+        print(f"K2 exact against plain and sort: {bits.shape[0]} sessions of {n} "
+              f"coordinates, {topk_ops.blocks_per_session(bits)} blocks per session")
     u = {"w": torch.randn(B, N_PARAMS, generator=g, device=dev) * 1e-3}
     err = max(err, k2_compare(u, FRAC))
-    print(f"K2 exact against plain and sort: main shape ({B}, {N_PARAMS})")
     bits, n = topk_ops.abs_bits_buffer(u)
+    bps = topk_ops.blocks_per_session(bits)
+    check(bps > 1, f"K2 runs on more than one block per session ({bps})")
+    print(f"K2 exact against plain and sort: main shape ({B}, {N_PARAMS}); grid of "
+          f"{bps} blocks per session x {B} sessions = {bps * B} blocks, "
+          f"{len(topk_ops.DIGIT_BITS)} digit passes {topk_ops.DIGIT_BITS}")
     k = topk_ops.selection_count(n, FRAC)
     ms = device_ms(lambda: topk_ops.topk_threshold_bits(bits, k))
     call_ms = time_ms(lambda: topk_ops.topk_threshold_bits(bits, k))
@@ -355,7 +372,7 @@ def k2_phase(dev, bw, flops):
           f"{plain_ms:.4f} ms, torch.kthvalue {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
     return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms)
+                library_ms=library_ms, bound_ms=bound_ms, blocks=bps * B)
 
 
 # ---------------------------------------------------------------------------
@@ -625,9 +642,32 @@ def llm_layer_inputs(cfg, params, prompt):
     return (x, local["ln1"]), qkv_local, qkv_global
 
 
+def k3_time(x, w, bw, n=20):
+    """K3's device time at x's shape beside its plain version's,
+    F.rms_norm's (with weight 1 + w) and its bound."""
+    ms = device_ms(lambda: norm_ops.rms_norm(x, w), n=n)
+    call_ms = time_ms(lambda: norm_ops.rms_norm(x, w))
+    plain_ms = device_ms(lambda: norm_ref.rms_norm_ref(x, w), n=5)
+    w1 = (1.0 + w.float()).to(w.dtype)
+    library_ms = device_ms(lambda: torch.nn.functional.rms_norm(
+        x, (x.shape[-1],), weight=w1, eps=1e-6), n=n)
+    y = torch.empty_like(x)
+    copy_ms = device_ms(lambda: y.copy_(x), n=n)  # the same bytes, no arithmetic
+    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    bound_ms = 1e3 * nbytes / bw
+    print(f"K3 rms_norm {tuple(x.shape)} {x.dtype} ({norm_ops.variant(x, w)}): kernel "
+          f"{ms:.4f} ms on the device ({call_ms:.4f} ms per call from idle), plain "
+          f"{plain_ms:.4f} ms, F.rms_norm {library_ms:.4f} ms (kernel/F.rms_norm "
+          f"{ms / library_ms:.3f}), Tensor.copy_ of x {copy_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e6:.3f} MB, {bound_ms / ms:.1%} of it)")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                copy_ms=copy_ms, bound_ms=bound_ms)
+
+
 def k3_phase(dev, cfg, norm_in, bw):
     """K3 against its plain version on synthetic rows and on the run's
-    prefill-layer input; then its time at that shape."""
+    prefill-layer input; then its time at the prefill's shape and at a
+    decode step's (the last position of the same input)."""
     g = torch.Generator(device=dev).manual_seed(13)
     err = 0.0
     for shape, dt, wdt in (((3, 7, 3584), torch.float32, torch.float32),
@@ -643,20 +683,13 @@ def k3_phase(dev, cfg, norm_in, bw):
     print(f"K3 rms_norm within 1 bf16 ulp (float32: 2e-6) of its plain version on "
           f"4 synthetic shapes and on the run's layer-0 input {tuple(x.shape)} "
           f"(its zero-init weight and a random one); max abs err {err:.3e}")
-    ms = device_ms(lambda: norm_ops.rms_norm(x, w))
-    call_ms = time_ms(lambda: norm_ops.rms_norm(x, w))
-    plain_ms = device_ms(lambda: norm_ref.rms_norm_ref(x, w), n=5)
-    w1 = (1.0 + w.float()).to(w.dtype)
-    library_ms = device_ms(lambda: torch.nn.functional.rms_norm(
-        x, (x.shape[-1],), weight=w1, eps=1e-6))
-    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
-    bound_ms = 1e3 * nbytes / bw
-    print(f"K3 rms_norm {tuple(x.shape)} {x.dtype}: kernel {ms:.4f} ms on the device "
-          f"({call_ms:.4f} ms per call from idle), plain {plain_ms:.4f} ms, "
-          f"F.rms_norm {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({nbytes / 1e6:.1f} MB)")
-    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms)
+    xd = x[:, -1:].contiguous()  # a decode step's input: (MAIN_BATCH, 1, d)
+    err = max(err, k3_compare(xd, w))
+    check(norm_ops.variant(x, w) == "warp_per_row" and norm_ops.variant(xd, w) == "split_row",
+          "K3 takes a warp per row in prefill and a split row in decode")
+    prefill = k3_time(x, w, bw)
+    decode = k3_time(xd, w, bw, n=200)
+    return dict(err=err, **prefill, **{f"decode_{k}": v for k, v in decode.items()})
 
 
 def live_pairs(S: int, window: int) -> int:
@@ -807,13 +840,18 @@ def main() -> None:
              launches=launches["topk_threshold_bits"],
              max_abs_err=max(k2["err"], err2), ms=k2["ms"], kernel_ms=k2["ms"],
              call_ms=k2["call_ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"], bound_by="bytes",
-             library_ms=k2["library_ms"]),
+             library_ms=k2["library_ms"], blocks=k2["blocks"],
+             digit_bits=list(topk_ops.DIGIT_BITS)),
         dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:25",
              launches=llm_launches["rms_norm"], max_abs_err=k3["err"], ms=k3["ms"],
              call_ms=k3["call_ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by="bytes", library_ms=k3["library_ms"],
-             library_call="torch.nn.functional.rms_norm(x, (d,), weight=1+w, eps=1e-6)"),
+             library_call="torch.nn.functional.rms_norm(x, (d,), weight=1+w, eps=1e-6)",
+             copy_ms=k3["copy_ms"],
+             decode_ms=k3["decode_ms"], decode_call_ms=k3["decode_call_ms"],
+             decode_plain_ms=k3["decode_plain_ms"], decode_bound_ms=k3["decode_bound_ms"],
+             decode_library_ms=k3["decode_library_ms"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:89",

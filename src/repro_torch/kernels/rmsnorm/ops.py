@@ -4,6 +4,13 @@
 CUDA tensor launches the kernel (or the wrapper raises on what the kernel
 does not take); a CPU tensor takes the plain version, `ref.rms_norm_ref`.
 
+The C entry point picks one of three variants from the rows, the width
+and the alignment (`variant` names the one a call would take): a warp per
+row on a persistent grid for many rows, a block per row with one 16-byte
+chunk per thread for few rows (a decode step), and a block per row that
+caches what fits in registers for the rest (ragged widths, unaligned
+rows, very long rows).
+
 ``launches`` counts kernel launches (plain-version calls do not count).
 """
 from __future__ import annotations
@@ -21,14 +28,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
              ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_VARIANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                     ctypes.c_int]
+VARIANTS = ("block_per_row", "split_row", "warp_per_row")
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
-    """``x * rsqrt(mean(x^2, -1) + eps) * (1 + w)`` in float32, in x's
-    dtype; x (..., d) float32 or bfloat16, w (d,) float32 or bfloat16."""
-    global launches
-    if x.device.type == "cpu":
-        return rms_norm_ref(x, w, eps)
+def _check(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Raise on what the kernel does not take; the number of rows."""
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm runs on cuda or cpu, not {x.device}")
     d = x.shape[-1]
@@ -43,6 +50,32 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     rows = x.numel() // max(d, 1)
     if rows >= 2**31:
         raise ValueError(f"{rows} rows exceed the kernel's grid (2**31 - 1)")
+    return rows
+
+
+def variant(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel variant `rms_norm` takes for these CUDA tensors, one of
+    `VARIANTS` (its output is a fresh buffer, so 16-byte aligned)."""
+    rows = _check(x, w)
+    lib = build.load("rmsnorm")
+    fn = lib.rms_norm_variant
+    fn.argtypes = _VARIANT_ARGTYPES
+    fn.restype = ctypes.c_int
+    v = fn(x.data_ptr(), _DTYPE_CODES[x.dtype], w.data_ptr(), _DTYPE_CODES[w.dtype],
+           None, rows, x.shape[-1], x.device.index)
+    if v < 0:
+        raise RuntimeError(f"rms_norm_variant: cannot query {x.device}")
+    return VARIANTS[v]
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2, -1) + eps) * (1 + w)`` in float32, in x's
+    dtype; x (..., d) float32 or bfloat16, w (d,) float32 or bfloat16."""
+    global launches
+    if x.device.type == "cpu":
+        return rms_norm_ref(x, w, eps)
+    rows = _check(x, w)
+    d = x.shape[-1]
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out

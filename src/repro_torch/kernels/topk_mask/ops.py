@@ -9,11 +9,18 @@ path's entry: it lays a B-stacked |u| tree out into that buffer, finds the
 thresholds, and builds the masks with a float ``|u| >= thr`` compare on
 the original leaves, so the masks equal the sort path's by construction.
 
+The kernel is an exact radix select: one launch per digit of
+`DIGIT_BITS` (bits 30..0, widest first), each over many blocks per
+session, with histograms, counters and prefixes in scratch that the
+wrapper allocates zeroed. Any digit schedule returns the counting
+search's bits; `tests/test_torch_topk_radix.py` follows this one in numpy.
+
 Size: the kernel streams each session's bits from global memory on every
 pass, so it has no on-chip budget; its counts are 32-bit ints, so it
 takes fewer than ``2**31`` coordinates per session, and the wrapper
-raises above that. The selection path hands it at most
-`repro_torch.core.selection._SMALL` per session and takes bisection above.
+raises above that, and for ``k`` above the coordinates of a session. The
+selection path hands it at most `repro_torch.core.selection._SMALL` per
+session and takes bisection above.
 
 ``launches`` counts kernel launches (plain-version calls do not count).
 """
@@ -28,11 +35,33 @@ from repro_torch.kernels import build, stacking
 from repro_torch.kernels.topk_mask.ref import abs_bits, topk_threshold_bits_ref
 
 _MAX_PER_SESSION = 2**31 - 1  # the kernel's int counts
+_MAX_SESSIONS = 65535         # the grid's y dimension
+DIGIT_BITS = (11, 10, 10)     # the kernel's digits, from bit 30 down
 
 launches = 0
 
+_DIGITS = ctypes.c_int * len(DIGIT_BITS)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, _DIGITS, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+
+def _lib():
+    lib = build.load("topk_mask")
+    lib.topk_threshold_bits.argtypes = _ARGTYPES
+    lib.topk_threshold_bits.restype = ctypes.c_int
+    lib.topk_scratch_words.argtypes = [_DIGITS, ctypes.c_int]
+    lib.topk_scratch_words.restype = ctypes.c_longlong
+    lib.topk_blocks_per_session.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int]
+    lib.topk_blocks_per_session.restype = ctypes.c_int
+    return lib
+
+
+def blocks_per_session(bits: torch.Tensor) -> int:
+    """Blocks per session of the kernel's grid for this CUDA buffer."""
+    b, rows, lanes = bits.shape
+    return _lib().topk_blocks_per_session(rows * lanes, b, bits.device.index)
 
 
 def topk_threshold_bits(bits: torch.Tensor, k: int) -> torch.Tensor:
@@ -53,17 +82,23 @@ def topk_threshold_bits(bits: torch.Tensor, k: int) -> torch.Tensor:
     if not bits.is_contiguous() or bits.data_ptr() % 16:
         raise ValueError("bits must be contiguous and 16-byte aligned")
     b, rows, lanes = bits.shape
-    if rows * lanes > _MAX_PER_SESSION:
-        raise ValueError(f"{rows * lanes} coordinates per session overflow "
+    n = rows * lanes
+    if n > _MAX_PER_SESSION:
+        raise ValueError(f"{n} coordinates per session overflow "
                          f"the kernel's int counts (at most {_MAX_PER_SESSION})")
-    lib = build.load("topk_mask")
-    fn = lib.topk_threshold_bits
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    if k > n:
+        raise ValueError(f"k = {k} exceeds the {n} coordinates of a session")
+    if b > _MAX_SESSIONS:
+        raise ValueError(f"{b} sessions exceed the kernel's grid ({_MAX_SESSIONS})")
     out = torch.empty(b, dtype=torch.int32, device=bits.device)
+    lib = _lib()
+    digits = _DIGITS(*DIGIT_BITS)
+    scratch = torch.zeros(b * lib.topk_scratch_words(digits, len(DIGIT_BITS)),
+                          dtype=torch.int32, device=bits.device)
     stream = torch.cuda.current_stream(bits.device)
-    err = fn(bits.data_ptr(), rows * lanes, k, b, out.data_ptr(),
-             bits.device.index, stream.cuda_stream)
+    err = lib.topk_threshold_bits(bits.data_ptr(), n, k, b, digits, len(DIGIT_BITS),
+                                  scratch.data_ptr(), out.data_ptr(),
+                                  bits.device.index, stream.cuda_stream)
     build.check(lib, err, "topk_threshold_bits launch")
     launches += 1
     return out

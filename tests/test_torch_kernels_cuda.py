@@ -91,6 +91,56 @@ def test_topk_kernel_exact(dev, case):
     assert torch.equal(masks["w"].cpu(), cpu["w"])
 
 
+@pytest.mark.parametrize("b,rows,k", [
+    (1, 2613, 16_720),    # one session (the sequential path's)
+    (13, 40, 1),          # k = 1, sessions not a multiple of anything
+    (3, 40, 40 * 128),    # k = n: the smallest value, padding included
+    (8, 2613, 334_464),   # k = n at the main shape
+])
+def test_topk_kernel_k_and_sessions(dev, b, rows, k):
+    g = torch.Generator(device=dev).manual_seed(7)
+    u = torch.randn(b, rows * 128 - 5, generator=g, device=dev)
+    bits, n = topk_ops.abs_bits_buffer({"w": u})
+    assert bits.shape == (b, rows, 128)
+    n0 = topk_ops.launches
+    thr = topk_ops.topk_threshold_bits(bits, k)
+    assert topk_ops.launches == n0 + 1
+    assert torch.equal(thr, topk_threshold_bits_ref(bits, k))
+    if k == 1:
+        assert torch.equal(thr.view(torch.float32), u.abs().max(dim=1).values)
+    if k == rows * 128:  # the zero padding is the smallest value
+        assert not bool(thr.any())
+
+
+def test_topk_kernel_exactly_k_nonzero(dev):
+    """A session with exactly k non-zero values: the threshold is the
+    smallest of them; with k + 1 it is 0, as in the counting search."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, rows, k = 3, 300, 1_234
+    u = torch.zeros(b, rows * 128, device=dev)
+    for i in range(b):
+        idx = torch.randperm(rows * 128, generator=g, device=dev)[:k]
+        u[i, idx] = torch.randn(k, generator=g, device=dev).abs() + 1e-30
+    bits = u.view(torch.int32).reshape(b, rows, 128).contiguous()
+    thr = topk_ops.topk_threshold_bits(bits, k)
+    assert torch.equal(thr, topk_threshold_bits_ref(bits, k))
+    smallest = torch.where(u > 0, u, torch.inf).min(dim=1).values
+    assert torch.equal(thr.view(torch.float32), smallest)
+    assert torch.equal(topk_ops.topk_threshold_bits(bits, k + 1),
+                       torch.zeros(b, dtype=torch.int32, device=dev))
+
+
+def test_topk_kernel_runs_on_many_blocks(dev):
+    """At the main shape the grid holds more than one block per session,
+    and the wrapper raises on a k above the coordinates of a session."""
+    bits = torch.zeros(8, 2613, 128, dtype=torch.int32, device=dev)
+    assert topk_ops.blocks_per_session(bits) > 1
+    n0 = topk_ops.launches
+    with pytest.raises(ValueError):
+        topk_ops.topk_threshold_bits(bits, 2613 * 128 + 1)
+    assert topk_ops.launches == n0
+
+
 def test_topk_kernel_takes_large_sessions(dev):
     """Sessions well above the Pallas kernel's 4M-coordinate budget still go
     through the kernel: it streams from global memory. Above 2**31 - 1
@@ -128,30 +178,67 @@ def _within_bf16_ulp(got, want, atol=1e-5):
     return bool(((g - w).abs() <= ulp + atol).all())
 
 
-@pytest.mark.parametrize("shape,dtype,wdtype", [
-    ((16_000, 3584), torch.bfloat16, torch.bfloat16),   # the prefill's rows
-    ((2, 1, 3584), torch.bfloat16, torch.bfloat16),     # a decode step's
-    ((3, 7, 3584), torch.float32, torch.float32),
-    ((5, 33), torch.float32, torch.bfloat16),           # ragged d: scalar path
-    ((4, 40_000), torch.bfloat16, torch.float32),       # d beyond the registers
-])
-def test_rmsnorm_kernel(dev, shape, dtype, wdtype):
+def _check_rmsnorm(x, w):
     from repro_torch.kernels.rmsnorm import ops as norm_ops
     from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 
-    g = torch.Generator(device=dev).manual_seed(4)
-    x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
-    w = (torch.randn(shape[-1], generator=g, device=dev) * 0.1).to(wdtype)
     n0 = norm_ops.launches
     got = norm_ops.rms_norm(x, w)
     assert norm_ops.launches == n0 + 1
     want = rms_norm_ref(x, w)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == x.shape
-    if dtype == torch.float32:  # sums taken in another order: ~1e-6 relative
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if x.dtype == torch.float32:  # sums taken in another order: ~1e-6 relative
         torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-6)
     else:
         assert _within_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("shape,dtype,wdtype,variant", [
+    ((16_000, 3584), torch.bfloat16, torch.bfloat16, "warp_per_row"),  # the prefill's rows
+    ((2, 1, 3584), torch.bfloat16, torch.bfloat16, "split_row"),       # a decode step's
+    ((3, 7, 3584), torch.float32, torch.float32, "split_row"),
+    ((5, 33), torch.float32, torch.bfloat16, "block_per_row"),         # ragged d: scalar path
+    ((4, 40_000), torch.bfloat16, torch.float32, "block_per_row"),     # d beyond the registers
+    ((3000, 1024), torch.float32, torch.bfloat16, "warp_per_row"),
+])
+def test_rmsnorm_kernel(dev, shape, dtype, wdtype, variant):
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+    w = (torch.randn(shape[-1], generator=g, device=dev) * 0.1).to(wdtype)
+    assert norm_ops.variant(x, w) == variant
+    _check_rmsnorm(x, w)
+
+
+@pytest.mark.parametrize("side", [-1, 0])
+def test_rmsnorm_kernel_either_side_of_the_row_switch(dev, side):
+    """The host takes a warp per row from 16 rows per SM up, a block per
+    row split into 16-byte chunks below."""
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+
+    rows = 16 * torch.cuda.get_device_properties(dev).multi_processor_count + side
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = (torch.randn(rows, 3584, generator=g, device=dev) * 3).to(torch.bfloat16)
+    w = (torch.randn(3584, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    assert norm_ops.variant(x, w) == ("split_row" if side < 0 else "warp_per_row")
+    _check_rmsnorm(x, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_kernel_unaligned_rows(dev, dtype):
+    """A contiguous x that starts one element into its storage is not
+    16-byte aligned: it goes element by element."""
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    flat = (torch.randn(64 * 3584 + 1, generator=g, device=dev) * 3).to(dtype)
+    x = flat[1:].view(64, 3584)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = (torch.randn(3584, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    assert norm_ops.variant(x, w) == "block_per_row"
+    _check_rmsnorm(x, w)
 
 
 @pytest.mark.parametrize("S,H,KV,window,softcap,dtype", [
