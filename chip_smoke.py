@@ -35,7 +35,19 @@ its own:
    to 0 just before and read just after; afterwards both kernels are held
    against their plain versions again on the run's real updates and
    gradients, and each stage of a phase is timed on its own;
-5. the LLM serving path: Gemma-2 9B at full width and depth (42 layers,
+5. the streaming schemes (``sim/runner.run_scheme``, the paper's Table 1):
+   the width-4.0 student pretrained on the card (``pretrain_student``,
+   ``PRETRAIN_STEPS`` steps from seed 42 on 256x256 videos), then all
+   five schemes on one 90 s, 256x256, 4 fps video with the oracle teacher,
+   then ``ams`` and ``no_custom`` again under a learned teacher
+   (``train_teacher``, ``TEACHER_STEPS`` steps). Each run prints its mean
+   mIoU, uplink and downlink Kbps, updates, wall time and K1/K2 launches,
+   counted from 0 just before it; the counts must be exactly what the
+   scheme asks for (K1 once per Adam step, K2 once per gradient-guided
+   selection). Then K1 and K2 at B = 1 are held against their plain
+   versions on the ``ams`` run's last update and a real gradient, K2 is
+   timed at B = 1, and one sequential ``ams`` phase is split by stage;
+6. the LLM serving path: Gemma-2 9B at full width and depth (42 layers,
    d_model 3584, random bf16 weights drawn on the card from seed 0), a
    batch of 2 random prompts of 8,000 tokens, prefill, then 64 greedy
    decode steps through ``launch.serve.serve``, once cold and once timed
@@ -53,9 +65,9 @@ its own:
    a PyTorch call (``F.rms_norm``; for K4 at softcap 0,
    ``scaled_dot_product_attention``); K3 must take its warp-per-row
    variant at the prefill's shape and its split-row one at the decode's;
-6. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
+7. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
    against its plain version, times and bound;
-7. the last line, ``{"ok": true, "device": {...}}``.
+8. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; it does so too without CUDA, and when ``src/`` is missing (the
@@ -86,7 +98,8 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.core import selection  # noqa: E402
 from repro_torch.core.batched import stack_trees, train_phases_fused  # noqa: E402
 from repro_torch.core.client import EdgeClient  # noqa: E402
-from repro_torch.core.delta import encode_delta_stack  # noqa: E402
+from repro_torch.core.delta import encode_delta, encode_delta_stack  # noqa: E402
+from repro_torch.core.masked_adam import masked_adam_update  # noqa: E402
 from repro_torch.core.server import AMSConfig, AMSSession, Task  # noqa: E402
 from repro_torch.data.video import VideoConfig  # noqa: E402
 from repro_torch.device import host_to_device  # noqa: E402
@@ -107,7 +120,9 @@ from repro_torch.models.attention import _proj_qkv  # noqa: E402
 from repro_torch.models.layers import apply_norm, embed_apply  # noqa: E402
 from repro_torch.models.registry import build as build_model  # noqa: E402
 from repro_torch.models.seg.student import SegConfig, make_student, seg_param_count  # noqa: E402
-from repro_torch.sim.seg_world import SegWorld, phi_pixel_loss  # noqa: E402
+from repro_torch.models.seg.teacher import train_teacher  # noqa: E402
+from repro_torch.sim import runner  # noqa: E402
+from repro_torch.sim.seg_world import SegWorld, phi_pixel_loss, pretrain_student  # noqa: E402
 
 # data-sheet peaks per card, matched on the name nvidia-smi reports:
 # (substring, device memory bytes/s, float32 FLOP/s outside tensor cores,
@@ -123,6 +138,20 @@ B, N_PARAMS = 8, 334_405            # main path: sessions, width-4.0 student
 WIDTH, HW = 4.0, 256                # student width, frame height and width
 ADAM = dict(b1=0.9, b2=0.999, eps=1e-8)
 FRAC = 0.05
+# the streaming schemes: the benchmarks' AMS settings (benchmarks/common.py
+# default_ams), a 90 s video, One-Time training after 30 s. Just-In-Time
+# trains while the edge's pixel accuracy on the sampled frame is below its
+# threshold: at the default 0.60 the pretrained width-4.0 student stays
+# above it on every frame of this video and JIT never trains, so the smoke
+# takes 0.90, the top of the benchmarks' threshold sweep (fig4_bw_sweep.py)
+SCHEME_VIDEO = dict(height=HW, width=HW, fps=4.0, seed=11, drift_period=240.0,
+                    duration=90.0)
+SCHEME_AMS = dict(t_update=10.0, t_horizon=40.0, k_iters=25, batch_size=8, gamma=FRAC,
+                  lr=2e-3, phi_target=0.15, asr_eta=1.0, atr_gamma0=0.45,
+                  atr_gamma1=0.60)
+SCHEME_SIM = dict(eval_stride=4, one_time_window=30.0, one_time_iters=100,
+                  jit_threshold=0.90)
+PRETRAIN_STEPS, TEACHER_STEPS = 120, 150
 
 
 def peaks(name: str):
@@ -387,7 +416,8 @@ def main_path(dev):
     worlds = [SegWorld.make(VideoConfig(height=HW, width=HW, seed=s), seg)
               for s in range(B)]
     p0 = make_student(seg, seed=0, device=dev)
-    sessions = [AMSSession(Task(w.loss_and_grad, phi_pixel_loss), ams, p0, seed=i)
+    sessions = [AMSSession(Task(loss_and_grad=w.loss_and_grad, teacher=None,
+                                    phi_loss=phi_pixel_loss), ams, p0, seed=i)
                 for i, w in enumerate(worlds)]
     clients = [EdgeClient(w.predict, p0) for w in worlds]
     fps = worlds[0].video.cfg.fps
@@ -524,6 +554,225 @@ def phase_breakdown(dev, sessions):
           f"{k * grad_ms:.1f}; {k} x stacked masked Adam (flatten + K1 + "
           f"views) {adam_ms:.3f} = {k * adam_ms:.2f}; stacked selection "
           f"{select_ms:.3f}; encode {encode_ms:.1f}; sum {total:.1f}")
+
+
+# ---------------------------------------------------------------------------
+# the streaming schemes (sim/runner.py)
+# ---------------------------------------------------------------------------
+
+
+def zero_launches():
+    adam_ops.launches = 0
+    topk_ops.launches = 0
+
+
+def read_launches() -> dict:
+    return {"K1": adam_ops.launches, "K2": topk_ops.launches}
+
+
+class RecordedSession(AMSSession):
+    """`AMSSession` that keeps itself and each phase's time (host clock
+    around the phase, from an idle device to the delta on the host), so
+    the smoke can read the ``ams`` run's last state afterwards."""
+
+    made: list = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.phase_s = []
+        RecordedSession.made.append(self)
+
+    def train_phase(self, t_now):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super().train_phase(t_now)
+        torch.cuda.synchronize()
+        self.phase_s.append(time.perf_counter() - t0)
+        return out
+
+
+def run_one(scheme, world, pre, ams, sim, expect, label=None):
+    """One `run_scheme` with the launch counts zeroed just before and read
+    just after; ``expect(result, extra)`` gives the counts it must have."""
+    jit_iters = [0]
+    lg = world.loss_and_grad
+    if scheme == "jit":  # count Just-In-Time's training iterations
+        def counting(*args):
+            jit_iters[0] += 1
+            return lg(*args)
+        world.loss_and_grad = counting
+    runner.AMSSession = RecordedSession
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        r = runner.run_scheme(scheme, world, pre, ams, sim)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        runner.AMSSession = AMSSession
+        world.loss_and_grad = lg
+    duration = world.video.cfg.duration
+    up, down = r.bandwidth_kbps(duration)
+    check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in r.miou_per_frame),
+          f"{scheme}: every mIoU finite and in [0, 1]")
+    want = expect(r, jit_iters[0])
+    print(f"scheme {label or scheme}: mean mIoU {r.mean_miou:.4f} over "
+          f"{len(r.miou_per_frame)} frames, uplink {up:.2f} Kbps, downlink "
+          f"{down:.2f} Kbps, {r.updates} updates, wall {wall:.2f} s, launches "
+          f"{launches}" + (f", {jit_iters[0]} training iterations" if scheme == "jit"
+                           else ""))
+    check(launches == want, f"{label or scheme}: launches {launches}, want {want}")
+    return dict(scheme=scheme, mean_miou=r.mean_miou, up_kbps=up, down_kbps=down,
+                updates=r.updates, wall_s=wall, launches=launches, result=r)
+
+
+def schemes_path(dev):
+    """The five schemes at the student's full width, then ``ams`` and
+    ``no_custom`` under a learned teacher. Returns the runs, the ``ams``
+    run's session and the seconds the phase took."""
+    t_start = time.perf_counter()
+    seg = SegConfig(n_classes=5, width=WIDTH)
+    ams = AMSConfig(**SCHEME_AMS)
+    sim = runner.SimConfig(**SCHEME_SIM)
+    zero_launches()
+    t0 = time.perf_counter()
+    pre = pretrain_student(seg, n_videos=5, steps=PRETRAIN_STEPS, batch=8, lr=2e-3,
+                           seed=42, video_kw=dict(height=HW, width=HW, fps=4.0,
+                                                  duration=60.0), device=dev)
+    torch.cuda.synchronize()
+    pre_launches = read_launches()
+    print(f"streaming schemes: pretrain_student {PRETRAIN_STEPS} steps (batch 8, "
+          f"5 videos of {HW}x{HW}, seed 42) in {time.perf_counter() - t0:.2f} s; "
+          f"launches {pre_launches}")
+    check(pre_launches == {"K1": PRETRAIN_STEPS, "K2": 0}, "pretrain_student launches")
+    world = SegWorld.make(VideoConfig(**SCHEME_VIDEO), seg)
+    n_frames = world.video.cfg.n_frames
+    print(f"streaming schemes: {n_frames} frames of {HW}x{HW} at "
+          f"{SCHEME_VIDEO['fps']} fps, {ams}, {sim}")
+
+    def ams_expect(r, _):
+        n = len(r.extras["history"])
+        check(r.updates == n >= 5, f"ams shipped {r.updates} updates (at least 5)")
+        return {"K1": ams.k_iters * n, "K2": n - 1}
+
+    def one_time_expect(r, _):
+        check(r.updates == 1, f"one_time shipped {r.updates} updates")
+        return {"K1": sim.one_time_iters, "K2": 0}
+
+    def no_custom_expect(r, _):
+        check(r.ledger.up_bytes == r.ledger.down_bytes == 0, "no_custom moves 0 bytes")
+        return {"K1": 0, "K2": 0}
+
+    def remote_expect(r, _):
+        check(r.ledger.up_bytes > 0 and r.ledger.down_bytes > 0,
+              "remote_tracking moves bytes both ways")
+        return {"K1": 0, "K2": 0}
+
+    def jit_expect(r, iters):
+        check(iters > 0 and r.updates > 0, "jit trained and shipped")
+        return {"K1": 0, "K2": iters - 1}
+
+    expects = {"no_custom": no_custom_expect, "one_time": one_time_expect,
+               "remote_tracking": remote_expect, "jit": jit_expect, "ams": ams_expect}
+    runs = {}
+    RecordedSession.made.clear()
+    for scheme in runner.SCHEMES:
+        runs[scheme] = run_one(scheme, world, pre, ams, sim, expects[scheme])
+    session = RecordedSession.made[-1]
+    zero_launches()
+    t0 = time.perf_counter()
+    teacher = train_teacher(world.video, seg.n_classes, steps=TEACHER_STEPS, device=dev)
+    torch.cuda.synchronize()
+    teacher_launches = read_launches()
+    print(f"streaming schemes: train_teacher {TEACHER_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f} s; launches {teacher_launches}")
+    check(teacher_launches == {"K1": TEACHER_STEPS, "K2": 0}, "train_teacher launches")
+    learned = SegWorld(video=world.video, teacher=teacher, seg_cfg=seg)
+    for scheme in ("ams", "no_custom"):
+        runs[f"learned_{scheme}"] = run_one(scheme, learned, pre, ams, sim,
+                                            expects[scheme], label=f"{scheme} (learned teacher)")
+    launches = {"pretrain_student": pre_launches, "train_teacher": teacher_launches,
+                **{k: v["launches"] for k, v in runs.items()}}
+    phase_s = time.perf_counter() - t_start
+    print(f"streaming schemes: phase wall {phase_s:.1f} s; ams phases (s, host clock "
+          f"around each): {[round(x, 4) for x in session.phase_s]}")
+    print("TABLE1 " + json.dumps({k: {x: v[x] for x in ("mean_miou", "up_kbps",
+                                                          "down_kbps", "updates", "wall_s")}
+                                  for k, v in runs.items()}))
+    return runs, session, launches, phase_s
+
+
+def recheck_b1(dev, s, bw, flops):
+    """K1 and K2 at B = 1 against their plain versions on the ``ams`` run's
+    last update and a real gradient; K2's times at B = 1."""
+    u1 = tree.tree_map(lambda l: l.unsqueeze(0), s.u_prev)
+    err2 = k2_compare(u1, FRAC)
+    mask = selection.gradient_guided_mask(s.u_prev, FRAC)
+    frames, labels = s.buffer.sample(np.random.default_rng(2), s.cfg.batch_size,
+                                     s.buffer.stamps[-1])
+    _, grads = s.task.loss_and_grad(s.params, host_to_device(frames, dev),
+                                    host_to_device(labels, dev))
+    one = [tree.tree_map(lambda l: l.unsqueeze(0), t)
+           for t in (s.params, grads, s.opt_state.m, s.opt_state.v, mask)]
+    _, bc = adam_ops.bias_correction(s.opt_state.count.reshape(1), lr=s.cfg.lr,
+                                     b1=s.cfg.b1, b2=s.cfg.b2)
+    plan = stacking.stack_plan(one[0])
+    err1 = 0.0
+    for group in plan.groups:
+        bufs = [stacking.flatten_group(tree.leaves(t), group, 1) for t in one]
+        err1 = max(err1, k1_compare(bufs, bc))
+    bits, n = topk_ops.abs_bits_buffer(u1)
+    k = topk_ops.selection_count(n, FRAC)
+    ms = device_ms(lambda: topk_ops.topk_threshold_bits(bits, k))
+    plain_ms = device_ms(lambda: topk_ref.topk_threshold_bits_ref(bits, k), n=5)
+    absu = torch.cat([l.abs().reshape(-1) for l in tree.leaves(s.u_prev)])[None]
+    library_ms = device_ms(lambda: torch.kthvalue(absu, n - k + 1, dim=1), n=5)
+    check(torch.equal(torch.kthvalue(absu, n - k + 1, dim=1).values.view(torch.int32),
+                      topk_ops.topk_threshold_bits(bits, k)),
+          "K2 at B=1 differs from torch.kthvalue")
+    nbytes = bits.numel() * 4 + 4
+    bound_ms = 1e3 * max(nbytes / bw, bits.numel() / flops)
+    print(f"re-check at B=1 on the ams run's last u and a real gradient: K1 bitwise "
+          f"equal, K2 exact; K2 topk_threshold_bits {tuple(bits.shape)} k={k}: kernel "
+          f"{ms:.4f} ms on the device ({topk_ops.blocks_per_session(bits)} blocks), "
+          f"plain {plain_ms:.4f} ms, torch.kthvalue {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e6:.3f} MB)")
+    return err1, err2, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms)
+
+
+def sequential_phase_breakdown(dev, s):
+    """Where one sequential ``ams`` phase's time goes, each stage timed on
+    its own on the run's last state (replay batches from a separate RNG)."""
+    cfg = s.cfg
+    t_now = s.buffer.stamps[-1]
+    rng = np.random.default_rng(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = [s.buffer.sample(rng, cfg.batch_size, t_now) for _ in range(cfg.k_iters)]
+    frames = host_to_device(np.stack([b[0] for b in batches]), dev)
+    labels = host_to_device(np.stack([b[1] for b in batches]), dev)
+    torch.cuda.synchronize()
+    prepare_ms = 1e3 * (time.perf_counter() - t0)
+    grad_ms = time_ms(lambda: s.task.loss_and_grad(s.params, frames[0], labels[0]), reps=5)
+    _, grads = s.task.loss_and_grad(s.params, frames[0], labels[0])
+    mask = selection.gradient_guided_mask(s.u_prev, FRAC)
+    adam_ms = time_ms(lambda: masked_adam_update(s.params, grads, s.opt_state, mask,
+                                                 lr=cfg.lr, b1=cfg.b1, b2=cfg.b2,
+                                                 eps=cfg.eps))
+    select_ms = time_ms(lambda: selection.gradient_guided_mask(s.u_prev, FRAC))
+    encode_ms = time_ms(lambda: encode_delta(s.params, mask, cfg.value_dtype), reps=3)
+    k = cfg.k_iters
+    total = prepare_ms + k * (grad_ms + adam_ms) + select_ms + encode_ms
+    print(f"sequential ams phase breakdown (ms, each stage timed alone): prepare+H2D "
+          f"{prepare_ms:.1f}; {k} x loss/grad {grad_ms:.2f} = {k * grad_ms:.1f}; {k} x "
+          f"masked Adam (flatten + K1 at B=1 + views) {adam_ms:.3f} = {k * adam_ms:.2f}; "
+          f"selection (K2 at B=1 + masks) {select_ms:.3f}; encode {encode_ms:.1f}; "
+          f"sum {total:.1f}")
+    return dict(prepare_ms=prepare_ms, grad_ms=grad_ms, adam_ms=adam_ms,
+                select_ms=select_ms, encode_ms=encode_ms, sum_ms=total)
 
 
 # ---------------------------------------------------------------------------
@@ -815,7 +1064,14 @@ def main() -> None:
     del sessions
     torch.cuda.empty_cache()
 
-    # 5. the LLM serving path, then K3 and K4 on its own data
+    # 5. the streaming schemes
+    _, ams_session, runner_launches, schemes_s = schemes_path(dev)
+    err1_b1, err2_b1, k2_b1 = recheck_b1(dev, ams_session, bw, flops)
+    seq = sequential_phase_breakdown(dev, ams_session)
+    del ams_session
+    torch.cuda.empty_cache()
+
+    # 6. the LLM serving path, then K3 and K4 on its own data
     cfg, params, prompt, llm, llm_cold, llm_launches, peak = llm_path(dev)
     norm_in, qkv_local, qkv_global = llm_layer_inputs(cfg, params, prompt)
     del params
@@ -823,12 +1079,15 @@ def main() -> None:
     k3 = k3_phase(dev, cfg, norm_in, bw)
     k4 = k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops)
 
-    # 5. kernels line
+    # 7. kernels line
     kernels = [
         dict(name="masked_adam_3d", route="cuda",
              source="src/repro_torch/csrc/masked_adam.cu",
              replaces="src/repro/kernels/masked_adam/masked_adam.py:64",
-             launches=launches["masked_adam_3d"], max_abs_err=max(k1["err"], err1),
+             launches=launches["masked_adam_3d"],
+             runner_launches=sum(v["K1"] for v in runner_launches.values()),
+             runner_launches_by_run={k: v["K1"] for k, v in runner_launches.items()},
+             max_abs_err=max(k1["err"], err1, err1_b1),
              ms=k1["ms"], kernel_ms=k1["ms"], call_ms=k1["call_ms"],
              plain_ms=k1["plain_ms"],
              bound_ms=k1["bound_ms"], bound_by="bytes", library_ms=None,
@@ -838,10 +1097,14 @@ def main() -> None:
              source="src/repro_torch/csrc/topk_mask.cu",
              replaces="src/repro/kernels/topk_mask/topk_mask.py:50",
              launches=launches["topk_threshold_bits"],
-             max_abs_err=max(k2["err"], err2), ms=k2["ms"], kernel_ms=k2["ms"],
+             runner_launches=sum(v["K2"] for v in runner_launches.values()),
+             runner_launches_by_run={k: v["K2"] for k, v in runner_launches.items()},
+             max_abs_err=max(k2["err"], err2, err2_b1), ms=k2["ms"], kernel_ms=k2["ms"],
              call_ms=k2["call_ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"], bound_by="bytes",
              library_ms=k2["library_ms"], blocks=k2["blocks"],
-             digit_bits=list(topk_ops.DIGIT_BITS)),
+             digit_bits=list(topk_ops.DIGIT_BITS),
+             b1_ms=k2_b1["ms"], b1_plain_ms=k2_b1["plain_ms"],
+             b1_library_ms=k2_b1["library_ms"], b1_bound_ms=k2_b1["bound_ms"]),
         dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:25",
              launches=llm_launches["rms_norm"], max_abs_err=k3["err"], ms=k3["ms"],
@@ -869,6 +1132,8 @@ def main() -> None:
              local_bound_share=k4["local_bound_ms"] / k4["local_ms"],
              sass=sass),
     ]
+    print(f"streaming schemes summary: phase {schemes_s:.1f} s; sequential ams phase "
+          f"stages {json.dumps({k: round(v, 3) for k, v in seq.items()})}")
     print(f"LLM summary: prefill {llm['prefill_ms']:.1f} ms (cold "
           f"{llm_cold['prefill_ms']:.1f}), decode {llm['decode_ms_per_token']:.3f} "
           f"ms/token (cold {llm_cold['decode_ms_per_token']:.3f}), peak {peak:,} bytes")

@@ -5,8 +5,9 @@ student), so B co-resident sessions' training phases need not be B
 separate K-iteration loops: stack their ``(params, opt_state, mask,
 replay batches)`` along a leading session axis, run the K iterations of a
 `torch.func.vmap`-ed loss/grad followed by ONE fused masked-Adam launch
-over the whole stack per iteration, then select the next phase's masks
-with one stacked top-k launch and encode the B wire deltas with one
+over the whole stack per iteration (momentum SGD, which has no kernel, is
+a `vmap` of the plain `momentum_update`), then select the next phase's
+masks with one stacked top-k launch and encode the B wire deltas with one
 device-to-host pull.
 
 `vmap` keeps each session's maths its own: the student's folded-norm
@@ -19,6 +20,7 @@ executable cache to keep, since PyTorch runs eagerly.
 """
 from __future__ import annotations
 
+import functools
 from collections import defaultdict
 from typing import Hashable
 
@@ -28,6 +30,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core import selection
 from repro_torch.core.delta import encode_delta_stack
+from repro_torch.core.masked_adam import momentum_update
 from repro_torch.device import host_to_device
 from repro_torch.kernels.masked_adam.ops import masked_adam_stacked
 from repro_torch.kernels.stacking import dtype_name
@@ -69,11 +72,12 @@ def _group_key(s, mask, frames, labels) -> Hashable:
     cfg = s.cfg
     return (s.task.loss_and_grad,
             tree_struct((s.params, s.opt_state)), _mask_struct(s, mask),
-            cfg.k_iters, cfg.lr, cfg.b1, cfg.b2, cfg.eps,
-            # the update pipeline batches selection (keyed by γ) and delta
-            # encode (keyed by wire dtype) across the group, so they must
-            # agree for sessions to share a fused launch
-            cfg.gamma, cfg.value_dtype,
+            cfg.k_iters, cfg.optimizer, cfg.lr, cfg.b1, cfg.b2, cfg.eps,
+            cfg.momentum,
+            # the update pipeline batches selection (keyed by γ/strategy)
+            # and delta encode (keyed by wire dtype) across the group, so
+            # they must agree for sessions to share a fused launch
+            cfg.strategy, cfg.gamma, cfg.value_dtype,
             tuple(frames.shape), str(frames.dtype),
             tuple(labels.shape), str(labels.dtype))
 
@@ -90,7 +94,8 @@ def _stacked_masks(members):
     ``members`` carry mask=None where selection was deferred; those
     sessions' ``u_prev`` trees stack into a single
     `selection.stacked_gradient_guided_masks` call. Concrete masks
-    (first-phase random or injected) stack as they are."""
+    (first-phase random or injected, Table-3 strategies) stack as they
+    are."""
     deferred = [j for j, m in enumerate(members) if m[2] is None]
     if not deferred:
         return stack_trees([m[2] for m in members])
@@ -151,12 +156,16 @@ def _launch_stacked(members):
     frames = host_to_device(np.stack([m[3] for m in members], axis=1), s0.device)
     labels = host_to_device(np.stack([m[4] for m in members], axis=1), s0.device)
     vgrad = torch.func.vmap(s0.task.loss_and_grad)
+    if cfg.optimizer == "adam":
+        step = functools.partial(masked_adam_stacked, lr=cfg.lr, b1=cfg.b1,
+                                 b2=cfg.b2, eps=cfg.eps)
+    else:
+        step = torch.func.vmap(functools.partial(
+            momentum_update, lr=cfg.lr, momentum=cfg.momentum))
     u = losses = None
     for k in range(cfg.k_iters):
         losses, grads = vgrad(params, frames[k], labels[k])
-        params, opt, u = masked_adam_stacked(params, grads, opt, mask,
-                                             lr=cfg.lr, b1=cfg.b1,
-                                             b2=cfg.b2, eps=cfg.eps)
+        params, opt, u = step(params, grads, opt, mask)
     return params, opt, u, losses, mask
 
 

@@ -13,6 +13,9 @@ Trees on the card always take the fused kernel
 (`repro_torch.kernels.masked_adam`), a single session as a stack of one;
 trees on the CPU take the per-leaf float32 expression, which is the
 kernel's plain version.
+
+`momentum_update` (the Just-In-Time baseline's momentum SGD) is plain
+PyTorch on either device: the JAX package has no kernel for it.
 """
 from __future__ import annotations
 
@@ -77,3 +80,36 @@ def adam_update(params, grads, state, **kw):
     """Unmasked Adam (mask of ones) — used by baselines and pretraining."""
     ones = tree.tree_map(lambda p: torch.ones_like(p, dtype=torch.bool), params)
     return masked_adam_update(params, grads, state, ones, **kw)
+
+
+class MomentumState(NamedTuple):
+    velocity: Any
+
+
+def init_momentum(params) -> MomentumState:
+    return MomentumState(tree.tree_map(
+        lambda p: torch.zeros_like(p, dtype=torch.float32), params))
+
+
+def momentum_update(params, grads, state: MomentumState, mask=None, *,
+                    lr=1e-3, momentum=0.9):
+    """Momentum SGD (the Just-In-Time baseline's optimizer, §4.1), with
+    optional coordinate mask (JIT also uses gradient-guided selection).
+    Returns (params', state', u)."""
+    if mask is None:
+        mask = tree.tree_map(lambda p: torch.ones((), dtype=p.dtype,
+                                                  device=p.device), params)
+
+    def upd(p, g, vel, b):
+        vel_new = momentum * vel + g.to(torch.float32)
+        u = lr * vel_new
+        p_new = (p.to(torch.float32) - u * b.to(torch.float32)).to(p.dtype)
+        return p_new, vel_new, u
+
+    ls, treedef = tree.flatten(params)
+    triples = [upd(*xs) for xs in zip(ls, tree.leaves(grads),
+                                      tree.leaves(state.velocity),
+                                      tree.leaves(mask))]
+    p, vel, u = (tree.unflatten(treedef, [t[j] for t in triples])
+                 for j in range(3))
+    return p, MomentumState(vel), u

@@ -12,10 +12,13 @@ JAX package's large-tree path, plain tensor ops on either device).
 session b's slice equals ``gradient_guided_mask(u_b, frac)``.
 
 `random_mask` draws the first phase's uniform mask from a
-`torch.Generator`. The Table-3 ablation strategies are not ported yet.
+`torch.Generator`. The Table-3 ablation strategies (random, first, last,
+first_last, full) go through `make_mask`; the positional ones select
+whole leaves in flatten order, the JAX package's leaf order.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import tree
@@ -84,7 +87,7 @@ def stacked_gradient_guided_masks(u_stacked, frac: float):
 
 
 # ---------------------------------------------------------------------------
-# first-phase random mask
+# ablation strategies (Table 3)
 # ---------------------------------------------------------------------------
 
 
@@ -95,6 +98,70 @@ def random_mask(gen: torch.Generator, params, frac: float):
     return tree.tree_map(
         lambda l: (torch.rand(l.shape, generator=gen) < frac).to(l.device),
         params)
+
+
+def _positional_mask(params, frac: float, *, reverse: bool):
+    """Select whole leaves in flattened traversal order until γN params are
+    covered (partial fill on the boundary leaf). Host-side, numpy; each
+    mask leaf is placed beside its param leaf."""
+    leaves, treedef = tree.flatten(params)
+    order = list(range(len(leaves)))
+    if reverse:
+        order = order[::-1]
+    budget = int(frac * sum(l.numel() for l in leaves))
+    masks = [None] * len(leaves)
+    for idx in order:
+        shape = tuple(leaves[idx].shape)
+        n = leaves[idx].numel()
+        if budget >= n:
+            masks[idx] = np.ones(shape, bool)
+            budget -= n
+        elif budget > 0:
+            flat = np.zeros(n, bool)
+            flat[:budget] = True
+            masks[idx] = flat.reshape(shape)
+            budget = 0
+        else:
+            masks[idx] = np.zeros(shape, bool)
+    return tree.unflatten(treedef, [torch.from_numpy(m).to(l.device)
+                                    for m, l in zip(masks, leaves)])
+
+
+def first_layers_mask(params, frac: float):
+    return _positional_mask(params, frac, reverse=False)
+
+
+def last_layers_mask(params, frac: float):
+    return _positional_mask(params, frac, reverse=True)
+
+
+def first_last_mask(params, frac: float):
+    a = _positional_mask(params, frac / 2, reverse=False)
+    b = _positional_mask(params, frac / 2, reverse=True)
+    return tree.tree_map(torch.logical_or, a, b)
+
+
+def make_mask(strategy: str, *, params=None, u_prev=None, frac: float,
+              rng: torch.Generator | None = None):
+    if strategy == "gradient_guided":
+        if u_prev is None:
+            raise ValueError("gradient_guided needs u_prev")
+        return gradient_guided_mask(u_prev, frac)
+    if strategy == "random":
+        if rng is None:
+            raise ValueError("random needs a torch.Generator")
+        return random_mask(rng, params, frac)
+    if strategy == "first":
+        return first_layers_mask(params, frac)
+    if strategy == "last":
+        return last_layers_mask(params, frac)
+    if strategy == "first_last":
+        return first_last_mask(params, frac)
+    if strategy == "full":
+        return tree.tree_map(
+            lambda p: torch.ones(p.shape, dtype=torch.bool, device=p.device),
+            params)
+    raise ValueError(strategy)
 
 
 def mask_fraction(mask) -> float:

@@ -2,18 +2,18 @@
 
 The session owns the server-side copy of the student, the Adam moments, the
 training buffer, and the ASR/ATR controllers. It is generic over a `Task`
-adapter (the loss/grad callable and the φ-score loss).
+adapter (the loss/grad callable, the teacher and the φ-score loss).
 
-Differences from the JAX package's session: the optimizer is Adam only and
-the strategy is gradient-guided only (momentum and the Table-3 ablations are
-not ported yet); the first phase's uniform random mask comes from a
-`torch.Generator`, or from ``first_mask`` when the caller injects one (the
-parity tests replay the JAX package's phase-0 mask that way).
+Difference from the JAX package's session: random masks (the first
+gradient-guided phase's, and every phase of the ``"random"`` strategy)
+come from a `torch.Generator`; the first gradient-guided phase takes
+``first_mask`` instead when the caller injects one (the parity tests
+replay the JAX package's phase-0 mask that way).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -23,7 +23,12 @@ from repro_torch.core import selection
 from repro_torch.core.atr import ATRController
 from repro_torch.core.buffer import ReplayBuffer
 from repro_torch.core.delta import ModelDelta, encode_delta
-from repro_torch.core.masked_adam import init_state, masked_adam_update
+from repro_torch.core.masked_adam import (
+    init_momentum,
+    init_state,
+    masked_adam_update,
+    momentum_update,
+)
 from repro_torch.core.sampler import ASRController
 from repro_torch.device import host_to_device
 
@@ -38,10 +43,13 @@ class AMSConfig:
     k_iters: int = 20
     batch_size: int = 8
     gamma: float = 0.05
+    strategy: str = "gradient_guided"
+    optimizer: str = "adam"  # "momentum" = Just-In-Time's optimizer
     lr: float = 1e-3
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    momentum: float = 0.9
     value_dtype: str = "float16"
     # ASR
     phi_target: float = 0.25
@@ -61,10 +69,13 @@ class Task:
     """Adapter binding AMS to a concrete model/task.
 
     loss_and_grad(params, frames, labels) -> (loss, grads), on tensors
+    teacher(frames) -> labels, from a host (N, H, W, C) batch; a numpy
+        array or a tensor on any device
     phi_loss(label_now, label_prev) -> float  (task loss for the φ-score)
     """
 
     loss_and_grad: Callable
+    teacher: Callable
     phi_loss: Callable
 
 
@@ -75,7 +86,10 @@ class AMSSession:
         self.cfg = cfg
         self.params = params0
         self.device = tree.leaves(params0)[0].device
-        self.opt_state = init_state(params0)
+        if cfg.optimizer == "adam":
+            self.opt_state: Any = init_state(params0)
+        else:
+            self.opt_state = init_momentum(params0)
         self.buffer = ReplayBuffer(horizon=cfg.t_horizon)
         self.asr = ASRController(
             phi_target=cfg.phi_target, eta=cfg.asr_eta, r_min=cfg.r_min,
@@ -88,7 +102,7 @@ class AMSSession:
         self.rng = np.random.default_rng(seed)
         self.gen = torch.Generator().manual_seed(seed)
         self.first_mask = first_mask
-        self.u_prev = None  # last full Adam update (phase n-1)
+        self.u_prev = None  # last full optimizer update (phase n-1)
         self.phase = 0
         self.last_label = None
         self.next_train_time = 0.0
@@ -97,9 +111,26 @@ class AMSSession:
         self.history: list = []
 
     # ---------------- inference phase (Algorithm 1, lines 5-9) -----------
+    def receive_frames(self, frames, t_now: float) -> None:
+        """Label new sample frames with the teacher; feed buffer + φ-score.
+
+        The teacher runs ONCE over the stacked batch (one launch instead of
+        one per frame); the φ-score ingest stays sequential — it compares
+        consecutive labels, so order matters."""
+        frames = list(frames)
+        if not frames:
+            self.asr.maybe_update(t_now)
+            return
+        labels = self.task.teacher(np.stack(frames))
+        if isinstance(labels, torch.Tensor):
+            labels = labels.cpu().numpy()
+        for frame, label in zip(frames, np.asarray(labels)):
+            self._ingest(frame, label, t_now)
+        self.asr.maybe_update(t_now)
+
     def receive_labeled(self, frames, labels, t_now: float) -> None:
-        """Ingest sample frames with their teacher labels (the oracle teacher
-        of the simulation world labels by frame index, upstream)."""
+        """Same as receive_frames but labels were produced upstream (the
+        oracle teacher of the simulation world labels by frame index)."""
         for frame, label in zip(frames, labels):
             self._ingest(frame, np.asarray(label), t_now)
         self.asr.maybe_update(t_now)
@@ -111,17 +142,26 @@ class AMSSession:
         self.buffer.add(frame, label, t_now)
 
     # ---------------- training phase (Algorithm 1, lines 10-17) ----------
+    def _select_mask(self):
+        cfg = self.cfg
+        if cfg.strategy == "gradient_guided" and self.u_prev is None:
+            # first phase: uniform random (paper §3.1.2), or the injected one
+            if self.first_mask is not None:
+                return self.first_mask
+            return selection.random_mask(self.gen, self.params, cfg.gamma)
+        return selection.make_mask(cfg.strategy, params=self.params,
+                                   u_prev=self.u_prev, frac=cfg.gamma,
+                                   rng=self.gen)
+
     def _select_mask_or_defer(self):
-        """The phase's mask, or None for "deferred": a gradient-guided
-        selection is a pure function of ``u_prev``, so the fused pipeline
-        batches B of them into one stacked selection. The first phase has
-        no ``u_prev`` and takes a uniform random mask (paper §3.1.2), or
-        the injected ``first_mask``."""
-        if self.u_prev is not None:
+        """`_select_mask` with the gradient-guided selection left pending:
+        it is a pure function of ``u_prev``, so the fused pipeline batches
+        B of them into one stacked selection. Returns None for "deferred";
+        every other strategy, and the first gradient-guided phase, returns
+        its concrete mask."""
+        if self.cfg.strategy == "gradient_guided" and self.u_prev is not None:
             return None
-        if self.first_mask is not None:
-            return self.first_mask
-        return selection.random_mask(self.gen, self.params, self.cfg.gamma)
+        return self._select_mask()
 
     def _prepare_phase(self, t_now: float):
         """Host-side phase setup: select the coordinate mask and draw all K
@@ -164,10 +204,16 @@ class AMSSession:
         params, opt_state, u = self.params, self.opt_state, None
         for k in range(cfg.k_iters):
             loss, grads = self.task.loss_and_grad(params, frames[k], labels[k])
-            params, opt_state, u = masked_adam_update(
-                params, grads, opt_state, mask,
-                lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
-            )
+            if cfg.optimizer == "adam":
+                params, opt_state, u = masked_adam_update(
+                    params, grads, opt_state, mask,
+                    lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                )
+            else:
+                params, opt_state, u = momentum_update(
+                    params, grads, opt_state, mask, lr=cfg.lr,
+                    momentum=cfg.momentum,
+                )
         return self._commit_phase(t_now, params, opt_state, u, float(loss), mask)
 
     def _commit_phase(self, t_now: float, params, opt_state, u, loss: float,
@@ -196,3 +242,7 @@ class AMSSession:
         if prep is None:
             return None
         return self._run_phase_prepared(t_now, *prep)
+
+    @property
+    def sampling_rate(self) -> float:
+        return self.asr.rate

@@ -17,6 +17,10 @@ them:
 * the folded norm uses the population variance over (batch, H, W) of one
   session's batch; the ASPP context branch normalises a (batch, C, 1, 1)
   tensor over the batch only.
+* ReLU6's gradient at x = 0 and x = 6 is 0.5, as ``jnp.clip``'s
+  (``torch.clamp``'s is 1, ``F.relu6``'s 0). At batch 1 the context
+  branch normalises to exactly 0, so its output is its bias, zero at
+  init: it sits on the kink.
 """
 from __future__ import annotations
 
@@ -105,13 +109,39 @@ def _conv(x, w_hwio, stride=1, groups=1):
                     groups=groups)
 
 
+class _ReLU6(torch.autograd.Function):
+    """``clamp(x, 0, 6)`` with gradient 0.5 at x = 0 and x = 6: the mean
+    of the strict (open interval) and the inclusive (closed interval)
+    masks, each one fused ``hardtanh_backward``. The closed interval's
+    bounds are the dtype's neighbours of 0 and 6 below and above."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.clamp(x, 0.0, 6.0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        fi = torch.finfo(x.dtype)
+        below0, above6 = -fi.tiny * fi.eps, 6.0 + 4.0 * fi.eps  # next values
+        strict = torch.ops.aten.hardtanh_backward(g, x, 0.0, 6.0)
+        closed = torch.ops.aten.hardtanh_backward(g, x, below0, above6)
+        return torch.lerp(strict, closed, 0.5)
+
+
 def _bn_act(x, bn, act=True):
     # folded-norm affine (no running stats: online setting, tiny batches)
     mu = x.mean(dim=(0, 2, 3), keepdim=True)
     var = x.var(dim=(0, 2, 3), keepdim=True, unbiased=False)
     x = (x - mu) * torch.rsqrt(var + 1e-5)
     x = x * (1.0 + bn["scale"].view(1, -1, 1, 1)) + bn["bias"].view(1, -1, 1, 1)
-    return torch.clamp(x, 0.0, 6.0) if act else x
+    return _ReLU6.apply(x) if act else x
 
 
 def seg_forward(cfg: SegConfig, params: dict, img):

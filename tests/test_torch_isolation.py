@@ -1,15 +1,19 @@
 """The port stands alone and never hides the device.
 
-* `src/repro_torch` and `chip_smoke.py` import neither ``jax`` nor the JAX
-  package ``repro`` (an AST scan), and every module of the port imports
-  in a process where ``jax`` and ``repro`` cannot be imported.
+* `src/repro_torch`, `chip_smoke.py` and `examples/quickstart_torch.py`
+  import neither ``jax`` nor the JAX package ``repro`` (an AST scan), and
+  every module of the port imports in a process where ``jax`` and
+  ``repro`` cannot be imported.
 * On a host without CUDA, an entry point asked for the card raises, and
   `chip_smoke.py` exits non-zero without printing a result, also from a
   directory that holds nothing else of the repo.
+* `examples/quickstart_torch.py --device cpu` runs and streams fewer
+  bytes than full-model updates would.
 """
 import ast
 import os
 import pkgutil
+import re
 import shutil
 import subprocess
 import sys
@@ -23,8 +27,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
+QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+
+
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", QUICKSTART]
 
 
 def _imported_modules(path: Path):
@@ -90,6 +97,43 @@ def test_llm_entry_points_raise_without_a_card():
         serve.main(["--arch", "gemma2-9b", "--tokens", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build(cfg).init(torch.Generator())
+
+
+def test_scheme_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the test is for hosts without one")
+    from repro_torch.data.video import SyntheticVideo, VideoConfig
+    from repro_torch.models.seg.student import SegConfig, make_student
+    from repro_torch.models.seg.teacher import train_teacher
+    from repro_torch.sim.runner import run_scheme
+    from repro_torch.sim.seg_world import SegWorld, pretrain_student
+
+    seg = SegConfig(n_classes=5)
+    world = SegWorld.make(VideoConfig(height=16, width=16, fps=1.0, duration=4.0), seg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_scheme("ams", world, make_student(seg, 0, "cuda"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pretrain_student(seg, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_teacher(SyntheticVideo(VideoConfig(height=16, width=16)), 5, steps=1)
+    r = subprocess.run([sys.executable, str(QUICKSTART)],
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr
+
+
+def test_quickstart_runs_on_the_cpu():
+    r = subprocess.run([sys.executable, str(QUICKSTART), "--device", "cpu"],
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    last = r.stdout.strip().splitlines()[-1]
+    m = re.search(r"streamed (\d+) bytes over 30 phases; full-model streaming "
+                  r"would be (\d+) bytes \(([\d.]+)x more\)", last)
+    assert m, last
+    streamed, full = int(m.group(1)), int(m.group(2))
+    assert 0 < streamed < full and float(m.group(3)) > 1.0
 
 
 def _run_smoke(cwd: Path):

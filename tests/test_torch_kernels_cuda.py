@@ -9,6 +9,11 @@ threshold bits) exactly, with byte-identical masks; K3 (RMSNorm) and K4
 (flash attention) within one bf16 ulp (+1e-5) in bfloat16, and within 2e-6
 and 2e-5 in float32. K4's bfloat16 cases go through its tensor-core
 kernel, its float32 cases through its CUDA-core kernel.
+
+Also on the card, though no kernel of the port computes it: the
+student's ReLU6 gradient at its kinks (0.5, as the JAX package's
+``jnp.clip``; ROADMAP F9), whose closed-interval bound below 0 is a
+subnormal.
 """
 import numpy as np
 import pytest
@@ -325,3 +330,15 @@ def test_flash_attention_bf16_rejects_strides_tma_cannot_take(dev):
     with pytest.raises(ValueError):
         attn_ops.flash_attention(q.expand(2, *q.shape[1:]), expanded, expanded)
     assert attn_ops.launches == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_student_relu6_gradient_at_the_kinks(dev, dtype):
+    from repro_torch.models.seg.student import _ReLU6
+
+    x = torch.tensor([-7.0, -1e-30, -0.0, 0.0, 1e-30, 3.0, 6.0, 9.0], dtype=dtype,
+                     device=dev, requires_grad=True)
+    y = _ReLU6.apply(x)
+    y.sum().backward()
+    assert torch.equal(y.detach(), torch.clamp(x.detach(), 0.0, 6.0))
+    assert x.grad.tolist() == [0.0, 0.0, 0.5, 0.5, 1.0, 1.0, 0.5, 0.0]

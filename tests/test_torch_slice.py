@@ -176,7 +176,8 @@ def _port_sessions(run, float64_grads=False):
     if float64_grads:
         lg = _t_loss_and_grad64(lg)
     p0 = params_from_numpy(run["p0"], "cpu")
-    sessions = [AMSSession(Task(lg, phi_pixel_loss), T_AMS, p0, seed=i,
+    sessions = [AMSSession(Task(loss_and_grad=lg, teacher=None, phi_loss=phi_pixel_loss),
+                           T_AMS, p0, seed=i,
                            first_mask=params_from_numpy(run["first_masks"][i], "cpu"))
                 for i in range(B)]
     return worlds, sessions, p0, seg
