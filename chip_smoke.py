@@ -47,7 +47,20 @@ its own:
    selection). Then K1 and K2 at B = 1 are held against their plain
    versions on the ``ams`` run's last update and a real gradient, K2 is
    timed at B = 1, and one sequential ``ams`` phase is split by stage;
-6. the LLM serving path: Gemma-2 9B at full width and depth (42 layers,
+6. the serving engine (``sim/multiclient.run_multiclient``, the paper's
+   Appendix E): 8 clients of the schemes phase's pretrained width-4.0
+   student on 256x256, 4 fps videos for 60 s, one GPU slot bound to the
+   card (``device_backend="torch"``), the fair policy, up to 8 sessions per
+   fused group, the schemes phase's ``AMSConfig``. K1 and K2 are counted
+   from 0 and must equal what the engine's and the update pipeline's own
+   counters imply (K1: K per trained group, fused or singleton; K2: one
+   per gradient-guided selection, stacked or solo); at least one fused
+   group of B >= 2 must train. Prints the groups by B, mIoU (mean and per
+   client), phases served, deferred and dropped, mean up/down Kbps, mean
+   and max delta latency, events, wall time, and the engine's drift
+   report: per stage the measured steady seconds on the card against
+   ``GPUCostModel``'s modeled seconds;
+7. the LLM serving path: Gemma-2 9B at full width and depth (42 layers,
    d_model 3584, random bf16 weights drawn on the card from seed 0), a
    batch of 2 random prompts of 8,000 tokens, prefill, then 64 greedy
    decode steps through ``launch.serve.serve``, once cold and once timed
@@ -65,9 +78,9 @@ its own:
    a PyTorch call (``F.rms_norm``; for K4 at softcap 0,
    ``scaled_dot_product_attention``); K3 must take its warp-per-row
    variant at the prefill's shape and its split-row one at the decode's;
-7. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
+8. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
    against its plain version, times and bound;
-8. the last line, ``{"ok": true, "device": {...}}``.
+9. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; it does so too without CUDA, and when ``src/`` is missing (the
@@ -95,7 +108,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # the port, from src/ beside this file; the import fails (non-zero exit,
 # no result) in a directory that holds nothing else of the repo
 from repro_torch import tree  # noqa: E402
-from repro_torch.core import selection  # noqa: E402
+from repro_torch.core import batched, selection, timing  # noqa: E402
 from repro_torch.core.batched import stack_trees, train_phases_fused  # noqa: E402
 from repro_torch.core.client import EdgeClient  # noqa: E402
 from repro_torch.core.delta import encode_delta, encode_delta_stack  # noqa: E402
@@ -121,7 +134,9 @@ from repro_torch.models.layers import apply_norm, embed_apply  # noqa: E402
 from repro_torch.models.registry import build as build_model  # noqa: E402
 from repro_torch.models.seg.student import SegConfig, make_student, seg_param_count  # noqa: E402
 from repro_torch.models.seg.teacher import train_teacher  # noqa: E402
+from repro_torch.serving import ServingConfig  # noqa: E402
 from repro_torch.sim import runner  # noqa: E402
+from repro_torch.sim.multiclient import run_multiclient  # noqa: E402
 from repro_torch.sim.seg_world import SegWorld, phi_pixel_loss, pretrain_student  # noqa: E402
 
 # data-sheet peaks per card, matched on the name nvidia-smi reports:
@@ -152,6 +167,10 @@ SCHEME_AMS = dict(t_update=10.0, t_horizon=40.0, k_iters=25, batch_size=8, gamma
 SCHEME_SIM = dict(eval_stride=4, one_time_window=30.0, one_time_iters=100,
                   jit_threshold=0.90)
 PRETRAIN_STEPS, TEACHER_STEPS = 120, 150
+# the serving engine: 8 clients on 256x256, 4 fps videos for 60 s, one GPU
+# slot bound to the card, fair policy, up to 8 sessions per fused group;
+# everything else (stationary_frac 0.3, eval_stride 6, LinkSpec()) default
+SERVE_CLIENTS, SERVE_S, SERVE_FUSE = 8, 60.0, 8
 
 
 def peaks(name: str):
@@ -701,7 +720,7 @@ def schemes_path(dev):
     print("TABLE1 " + json.dumps({k: {x: v[x] for x in ("mean_miou", "up_kbps",
                                                           "down_kbps", "updates", "wall_s")}
                                   for k, v in runs.items()}))
-    return runs, session, launches, phase_s
+    return pre, runs, session, launches, phase_s
 
 
 def recheck_b1(dev, s, bw, flops):
@@ -773,6 +792,98 @@ def sequential_phase_breakdown(dev, s):
           f"sum {total:.1f}")
     return dict(prepare_ms=prepare_ms, grad_ms=grad_ms, adam_ms=adam_ms,
                 select_ms=select_ms, encode_ms=encode_ms, sum_ms=total)
+
+
+# ---------------------------------------------------------------------------
+# the serving engine (sim/multiclient.py, serving/)
+# ---------------------------------------------------------------------------
+
+
+def serving_path(dev, pre):
+    """`run_multiclient` on the card with the schemes phase's pretrained
+    student; K1/K2 launches checked against the engine's and the update
+    pipeline's own counters. Returns the results, the launches and the
+    groups by B."""
+    seg = SegConfig(n_classes=5, width=WIDTH)
+    ams = AMSConfig(**SCHEME_AMS)
+    cfg = ServingConfig(duration=SERVE_S, device_backend="torch")
+    torch.cuda.synchronize()
+    info0, snap = batched.update_pipeline_info(), timing.snapshot()
+    zero_launches()
+    t0 = time.perf_counter()
+    r = run_multiclient(SERVE_CLIENTS, pre, seg, ams, duration=SERVE_S,
+                        video_kw=dict(height=HW, width=HW, fps=4.0),
+                        policy="fair", n_gpus=1, fuse_train=SERVE_FUSE,
+                        serving_cfg=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    info = {k: v - info0[k] for k, v in batched.update_pipeline_info().items()}
+    stats = timing.delta(snap)
+
+    def calls(stage):
+        return {key: v["calls"] for (st, key), v in stats.items() if st == stage}
+
+    stacked = calls("train_fused")            # {(B, K): groups}
+    singletons = sum(calls("encode_solo").values())
+    groups = {1: singletons} if singletons else {}
+    for (b, _), n in sorted(stacked.items()):
+        groups[b] = groups.get(b, 0) + n
+    n_groups = sum(stacked.values()) + singletons
+    solo_selects = sum(calls("select_solo").values())
+    want = {"K1": ams.k_iters * n_groups,
+            "K2": info["stacked_select_launches"] + solo_selects}
+    phases = r["phases_per_client"]
+    print(f"serving: {SERVE_CLIENTS} clients x {seg_param_count(seg):,} params, "
+          f"{HW}x{HW} at 4 fps for {SERVE_S:.0f} s, fair, 1 GPU slot on "
+          f"{cfg.device_backend} ({torch.cuda.get_device_name(0)}), fuse_train "
+          f"{SERVE_FUSE}; groups by B {groups}; update pipeline {info}; launches "
+          f"{launches}, want {want}")
+    check(sum(phases) == singletons + info["stacked_encode_sessions"],
+          f"serving: {sum(phases)} phases, {singletons} singletons + "
+          f"{info['stacked_encode_sessions']} in stacked groups")
+    check(sum(calls("select_stacked").values()) == info["stacked_select_launches"],
+          "serving: stacked selections timed as counted")
+    check(launches == want, f"serving: launches {launches}, want {want}")
+    check(any(b >= 2 for b, _ in stacked), "serving: a fused group of B >= 2 trained")
+    check(all(math.isfinite(m) and 0.0 <= m <= 1.0 for m in r["miou_per_client"]),
+          "serving: every client's mIoU finite and in [0, 1]")
+    check(min(phases) > 0 and r["delta_latency_mean_s"] > 0.0,
+          "serving: every client trained and received deltas")
+    print(f"serving: mean mIoU {r['mean_miou']:.4f}, per client "
+          f"{[round(m, 4) for m in r['miou_per_client']]}; phases served "
+          f"{r['phases_served']} ({phases} per client), deferred "
+          f"{r['phases_deferred']}, dropped {r['dropped_requests']}; fused launches "
+          f"{r['fused_launches']} covering {r['fused_sessions']} sessions; mean up "
+          f"{r['mean_up_kbps']:.2f} Kbps, down {r['mean_down_kbps']:.2f} Kbps; delta "
+          f"latency mean {r['delta_latency_mean_s']:.3f} s, max "
+          f"{r['delta_latency_max_s']:.3f} s; {r['events_processed']} events; "
+          f"wall {wall:.2f} s (engine {r['wall_s']:.2f} s); modeled gpu "
+          f"utilization {r['gpu_utilization']:.3f}")
+    for (st, key), v in sorted(stats.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        print(f"serving stage {st} {key}: {v['calls']} calls, first "
+              f"{v['first_calls']} ({v['first_s']:.3f} s), steady {v['steady_s']:.3f} s, "
+              f"{v['nbytes']:,} bytes")
+    drift = r["observability"]["drift"]
+    for st, e in drift.items():
+        ratio = e["drift_ratio"]
+        print(f"serving drift {st}: {e['steady_calls']} steady of {e['calls']} calls; "
+              f"measured {e['measured_steady_s']:.3f} s on the card "
+              f"({e['measured_per_call_s']:.4f} s a call) vs modeled "
+              f"{e['modeled_steady_s']:.3f} s; drift_ratio "
+              f"{'none (unpriced)' if ratio is None else f'{ratio:.3f}'}; first calls "
+              f"{e['compile_s']:.3f} s")
+    print("SERVING " + json.dumps(dict(
+        wall_s=wall, groups_by_b=groups, launches=launches,
+        **{k: r[k] for k in ("mean_miou", "miou_per_client", "phases_served",
+                             "phases_deferred", "dropped_requests", "mean_up_kbps",
+                             "mean_down_kbps", "delta_latency_mean_s",
+                             "delta_latency_max_s", "events_processed",
+                             "fused_launches", "fused_sessions")},
+        drift={k: {x: e[x] for x in ("calls", "steady_calls", "measured_steady_s",
+                                     "modeled_steady_s", "drift_ratio")}
+               for k, e in drift.items()})))
+    return r, launches, groups
 
 
 # ---------------------------------------------------------------------------
@@ -1065,13 +1176,18 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 5. the streaming schemes
-    _, ams_session, runner_launches, schemes_s = schemes_path(dev)
+    pre, _, ams_session, runner_launches, schemes_s = schemes_path(dev)
     err1_b1, err2_b1, k2_b1 = recheck_b1(dev, ams_session, bw, flops)
     seq = sequential_phase_breakdown(dev, ams_session)
     del ams_session
     torch.cuda.empty_cache()
 
-    # 6. the LLM serving path, then K3 and K4 on its own data
+    # 6. the serving engine on the schemes phase's pretrained student
+    serving, serving_launches, serving_groups = serving_path(dev, pre)
+    del pre
+    torch.cuda.empty_cache()
+
+    # 7. the LLM serving path, then K3 and K4 on its own data
     cfg, params, prompt, llm, llm_cold, llm_launches, peak = llm_path(dev)
     norm_in, qkv_local, qkv_global = llm_layer_inputs(cfg, params, prompt)
     del params
@@ -1079,7 +1195,7 @@ def main() -> None:
     k3 = k3_phase(dev, cfg, norm_in, bw)
     k4 = k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops)
 
-    # 7. kernels line
+    # 8. kernels line
     kernels = [
         dict(name="masked_adam_3d", route="cuda",
              source="src/repro_torch/csrc/masked_adam.cu",
@@ -1087,6 +1203,7 @@ def main() -> None:
              launches=launches["masked_adam_3d"],
              runner_launches=sum(v["K1"] for v in runner_launches.values()),
              runner_launches_by_run={k: v["K1"] for k, v in runner_launches.items()},
+             serving_launches=serving_launches["K1"],
              max_abs_err=max(k1["err"], err1, err1_b1),
              ms=k1["ms"], kernel_ms=k1["ms"], call_ms=k1["call_ms"],
              plain_ms=k1["plain_ms"],
@@ -1099,6 +1216,7 @@ def main() -> None:
              launches=launches["topk_threshold_bits"],
              runner_launches=sum(v["K2"] for v in runner_launches.values()),
              runner_launches_by_run={k: v["K2"] for k, v in runner_launches.items()},
+             serving_launches=serving_launches["K2"],
              max_abs_err=max(k2["err"], err2, err2_b1), ms=k2["ms"], kernel_ms=k2["ms"],
              call_ms=k2["call_ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"], bound_by="bytes",
              library_ms=k2["library_ms"], blocks=k2["blocks"],
@@ -1134,6 +1252,9 @@ def main() -> None:
     ]
     print(f"streaming schemes summary: phase {schemes_s:.1f} s; sequential ams phase "
           f"stages {json.dumps({k: round(v, 3) for k, v in seq.items()})}")
+    print(f"serving summary: groups by B {serving_groups}, mean mIoU "
+          f"{serving['mean_miou']:.4f}, drift_ratio train_fused "
+          f"{serving['observability']['drift'].get('train_fused', {}).get('drift_ratio')}")
     print(f"LLM summary: prefill {llm['prefill_ms']:.1f} ms (cold "
           f"{llm_cold['prefill_ms']:.1f}), decode {llm['decode_ms_per_token']:.3f} "
           f"ms/token (cold {llm_cold['decode_ms_per_token']:.3f}), peak {peak:,} bytes")

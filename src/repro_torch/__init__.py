@@ -33,13 +33,25 @@ Ported (the LLM zoo's dense serving path, prefill and greedy decode):
   forward flash attention (grouped KV heads, causal, sliding-window and
   softcap masks).
 
-Not ported yet: the serving engine (``serving/``), the learned teacher,
-``pretrain_student``, ``sim/runner.py`` and the multi-client simulator,
-the momentum optimizer and the Table-3 selection strategies, sharded
-execution, the exec/kernel-mode races and ``core/timing.py``, the
-roofline model, and the LLM zoo's MoE, Mamba2, RWKV6, cross-attention and
-encoder modules with their configs, ``data/tokens.py``, ``checkpoint/``
-and the dry-run and training launchers.
+Ported (the paper's streaming schemes and the serving runtime):
+
+* ``sim/runner.py`` (the five schemes of §4.1), ``data/codec.py``,
+  ``core/bandwidth.py``, momentum SGD and the Table-3 selection
+  strategies, ``models/seg/teacher.py`` (the learned teacher) and
+  ``pretrain_student``;
+* the serving engine, ``serving/`` (events, network, faults, policies,
+  the GPU pool with its ``device_backend="torch"`` binding, the fleet,
+  the flight recorder and drift audit, sessions that bind real AMS cores,
+  the engine), ``core/scheduler.py``, ``core/timing.py`` with its stage
+  hooks in ``core/batched.py``, ``core/selection.py`` and
+  ``core/delta.py``, and ``sim/multiclient.py``.
+
+Not ported yet: the fused path's execution shapes (the flatten copies
+around the masked-Adam kernel, CUDA graphs for the K loop and the race
+between them), sharded execution on several cards, the roofline model,
+and the LLM zoo's MoE, Mamba2, RWKV6, cross-attention and encoder modules
+with their configs, ``data/tokens.py``, ``checkpoint/`` and the dry-run
+and training launchers.
 
 Entry points take ``device="cuda"`` by default and raise when there is
 no card; the CPU runs only when the caller passes ``device="cpu"``.

@@ -5,16 +5,22 @@ one global gzip'd bit-vector marking their positions — the paper's wire
 format. Leaves are concatenated in flatten order (sorted dict keys), the
 JAX package's order, so the bytes of a delta are the same in both
 packages for the same params and mask.
+
+With `core.timing` on, the two encoders record stages ``encode_solo`` and
+``encode_stacked`` (key ``(B,)``) with the wire bytes they produced, as
+in the JAX package.
 """
 from __future__ import annotations
 
 import gzip
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.core import timing
 
 _TORCH_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
                  "float32": torch.float32}
@@ -54,9 +60,25 @@ def _pack_mask_bits(flat_m: np.ndarray) -> bytes:
                          mtime=0)
 
 
+# (structure, wire dtype) keys already encoded stacked: the first call per
+# key lands in the timing's first-call bucket
+_STACK_SEEN: set = set()
+
+
 def encode_delta(params_new, mask, value_dtype="float16") -> ModelDelta:
     """One session's delta: masked values gathered leaf by leaf on the
     host, then cast to ``value_dtype``."""
+    if not timing.enabled():
+        return _encode_delta(params_new, mask, value_dtype)
+    t0 = time.perf_counter()
+    d = _encode_delta(params_new, mask, value_dtype)
+    # host work (the pulls synchronise the device): no first-call split
+    timing.record("encode_solo", time.perf_counter() - t0,
+                  nbytes=d.total_bytes)
+    return d
+
+
+def _encode_delta(params_new, mask, value_dtype) -> ModelDelta:
     p_leaves = tree.leaves(params_new)
     m_leaves = tree.leaves(mask)
     n_total = sum(l.numel() for l in p_leaves)
@@ -82,14 +104,25 @@ def encode_delta_stack(params_stacked, mask_stacked, n_sessions: int,
     dt = _TORCH_DTYPES[str(value_dtype)]
     p_leaves = tree.leaves(params_stacked)
     n_total = sum(l[0].numel() for l in p_leaves)
+    on = timing.enabled()
+    if on:
+        key = (tree.struct(params_stacked), str(value_dtype))
+        first = key not in _STACK_SEEN
+        _STACK_SEEN.add(key)
+        t0 = time.perf_counter()
     vals = _to_numpy(torch.cat([l.reshape(l.shape[0], -1).to(dt)
                                 for l in p_leaves], dim=1))
     bits = _to_numpy(torch.cat([l.reshape(l.shape[0], -1).to(torch.bool)
                                 for l in tree.leaves(mask_stacked)], dim=1))
-    return [ModelDelta(values=vals[b][bits[b]],
-                       packed_mask=_pack_mask_bits(bits[b]),
-                       n_total=n_total, value_dtype=value_dtype)
-            for b in range(n_sessions)]
+    out = [ModelDelta(values=vals[b][bits[b]],
+                      packed_mask=_pack_mask_bits(bits[b]),
+                      n_total=n_total, value_dtype=value_dtype)
+           for b in range(n_sessions)]
+    if on:
+        timing.record("encode_stacked", time.perf_counter() - t0,
+                      first=first, key=(n_sessions,),
+                      nbytes=sum(d.total_bytes for d in out))
+    return out
 
 
 def apply_delta(params_old, delta: ModelDelta):

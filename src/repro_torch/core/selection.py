@@ -11,6 +11,10 @@ JAX package's large-tree path, plain tensor ops on either device).
 `stacked_gradient_guided_masks` selects for B stacked sessions at once;
 session b's slice equals ``gradient_guided_mask(u_b, frac)``.
 
+With `core.timing` on, the two record stages ``select_solo`` and
+``select_stacked`` (key ``(B,)``), the first call per tree structure and
+γ in the process in the first-call bucket, as in the JAX package.
+
 `random_mask` draws the first phase's uniform mask from a
 `torch.Generator`. The Table-3 ablation strategies (random, first, last,
 first_last, full) go through `make_mask`; the positional ones select
@@ -18,10 +22,13 @@ whole leaves in flatten order, the JAX package's leaf order.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.core import timing
 from repro_torch.kernels.topk_mask import ops as topk_ops
 
 _SMALL = 20_000_000  # below this, the exact threshold beats bisection
@@ -29,6 +36,18 @@ _SMALL = 20_000_000  # below this, the exact threshold beats bisection
 
 def tree_size(t) -> int:
     return sum(l.numel() for l in tree.leaves(t))
+
+
+# (structure, γ) keys already selected on, solo and stacked: the first call
+# per key lands in the timing's first-call bucket
+_SOLO_SEEN: set = set()
+_STACK_SEEN: set = set()
+
+
+def _select_nbytes(b: int, per_session: int) -> int:
+    """Least traffic of the stacked selection: one float32 read of every
+    |u| coordinate plus one bool mask write."""
+    return b * per_session * 5
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +80,19 @@ def gradient_guided_mask(u_tree, frac: float):
 
     Small trees: the exact global top-k threshold, ``|u| >= thr``. Large
     trees: bisection over per-leaf counts, ``|u| > thr``."""
+    if not timing.enabled():
+        return _gradient_guided_mask(u_tree, frac)
+    key = (tree.struct(u_tree), float(frac))
+    first = key not in _SOLO_SEEN
+    _SOLO_SEEN.add(key)
+    t0 = time.perf_counter()
+    out = _gradient_guided_mask(u_tree, frac)
+    timing.block(out)
+    timing.record("select_solo", time.perf_counter() - t0, first=first)
+    return out
+
+
+def _gradient_guided_mask(u_tree, frac: float):
     if tree_size(u_tree) > _SMALL:
         thr = global_threshold(u_tree, frac)
         return tree.tree_map(lambda u: torch.abs(u.to(torch.float32)) > thr, u_tree)
@@ -78,10 +110,27 @@ def stacked_gradient_guided_masks(u_stacked, frac: float):
     leaves = tree.leaves(u_stacked)
     if not leaves:
         raise ValueError("stacked selection needs at least one leaf")
+    if not timing.enabled():
+        return _stacked_select(u_stacked, frac)
+    b = int(leaves[0].shape[0])
+    key = (tree.struct(u_stacked), float(frac))
+    first = key not in _STACK_SEEN
+    _STACK_SEEN.add(key)
+    t0 = time.perf_counter()
+    out = _stacked_select(u_stacked, frac)
+    timing.block(out)
+    timing.record("select_stacked", time.perf_counter() - t0, first=first,
+                  key=(b,), nbytes=_select_nbytes(
+                      b, sum(l[0].numel() for l in leaves)))
+    return out
+
+
+def _stacked_select(u_stacked, frac: float):
+    leaves = tree.leaves(u_stacked)
     if sum(l[0].numel() for l in leaves) > _SMALL:
         b = leaves[0].shape[0]
-        per = [gradient_guided_mask(tree.tree_map(lambda l: l[i], u_stacked),
-                                    frac) for i in range(b)]
+        per = [_gradient_guided_mask(
+            tree.tree_map(lambda l: l[i], u_stacked), frac) for i in range(b)]
         return tree.tree_map(lambda *ls: torch.stack(ls), *per)
     return topk_ops.stacked_topk_masks(u_stacked, frac)
 

@@ -70,3 +70,9 @@ def tree_map(fn: Callable, tree, *rest):
             raise ValueError("tree_map over trees of different structure")
         others.append(rl)
     return unflatten(treedef, [fn(*xs) for xs in zip(ls, *others)])
+
+
+def struct(tree) -> tuple:
+    """Hashable structure, shape and dtype fingerprint of a tree."""
+    ls, treedef = flatten(tree)
+    return (treedef, tuple((tuple(l.shape), str(l.dtype)) for l in ls))

@@ -1,14 +1,17 @@
 """The port stands alone and never hides the device.
 
-* `src/repro_torch`, `chip_smoke.py` and `examples/quickstart_torch.py`
-  import neither ``jax`` nor the JAX package ``repro`` (an AST scan), and
-  every module of the port imports in a process where ``jax`` and
-  ``repro`` cannot be imported.
-* On a host without CUDA, an entry point asked for the card raises, and
-  `chip_smoke.py` exits non-zero without printing a result, also from a
-  directory that holds nothing else of the repo.
+* `src/repro_torch`, `chip_smoke.py`, `examples/quickstart_torch.py` and
+  `examples/multi_client_torch.py` import neither ``jax`` nor the JAX
+  package ``repro`` (an AST scan), and every module of the port and both
+  examples import in a process where ``jax`` and ``repro`` cannot be
+  imported.
+* On a host without CUDA, an entry point asked for the card raises (the
+  serving pool's ``device_backend="torch"`` too), and `chip_smoke.py`
+  exits non-zero without printing a result, also from a directory that
+  holds nothing else of the repo.
 * `examples/quickstart_torch.py --device cpu` runs and streams fewer
-  bytes than full-model updates would.
+  bytes than full-model updates would; `examples/multi_client_torch.py
+  --device cpu` serves two clients at small frames.
 """
 import ast
 import os
@@ -28,10 +31,12 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+MULTI_CLIENT = ROOT / "examples" / "multi_client_torch.py"
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", QUICKSTART]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", QUICKSTART,
+                                         MULTI_CLIENT]
 
 
 def _imported_modules(path: Path):
@@ -58,13 +63,19 @@ def test_every_module_imports_without_jax():
 
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
-    assert "repro_torch.core.batched" in names
+    assert {"repro_torch.core.batched", "repro_torch.core.timing",
+            "repro_torch.serving.engine",
+            "repro_torch.sim.multiclient"} <= set(names)
+    examples = [str(QUICKSTART), str(MULTI_CLIENT)]
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
-            "import importlib\n"
+            "import importlib, importlib.util\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
+            f"for i, path in enumerate({examples!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
@@ -134,6 +145,39 @@ def test_quickstart_runs_on_the_cpu():
     assert m, last
     streamed, full = int(m.group(1)), int(m.group(2))
     assert 0 < streamed < full and float(m.group(3)) > 1.0
+
+
+def test_serving_torch_backend_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the test is for hosts without one")
+    from repro_torch.serving import (GPUPool, ServingConfig, ServingEngine,
+                                     StubSession)
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPUPool(2, device_backend="torch")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine([StubSession(0)], cfg=ServingConfig(
+            duration=10.0, device_backend="torch"))
+    r = subprocess.run([sys.executable, str(MULTI_CLIENT), "--clients", "1"],
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr
+
+
+def test_multi_client_example_runs_on_the_cpu():
+    r = subprocess.run([sys.executable, str(MULTI_CLIENT), "--device", "cpu",
+                        "--clients", "2", "--duration", "20", "--size", "24",
+                        "--fuse-train", "2"],
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.strip().splitlines()
+    m = re.search(r"clients=2 policy=fair gpus=1 mean mIoU=([\d.]+) .* "
+                  r"served=(\d+)", lines[0])
+    assert m, lines[0]
+    assert 0.0 < float(m.group(1)) <= 1.0 and int(m.group(2)) >= 2
+    assert sum(line.startswith("  client ") for line in lines) == 2
 
 
 def _run_smoke(cwd: Path):

@@ -342,3 +342,44 @@ def test_student_relu6_gradient_at_the_kinks(dev, dtype):
     y.sum().backward()
     assert torch.equal(y.detach(), torch.clamp(x.detach(), 0.0, 6.0))
     assert x.grad.tolist() == [0.0, 0.0, 0.5, 0.5, 1.0, 1.0, 0.5, 0.0]
+
+
+def test_train_many_fuses_on_the_card_with_exact_launches(dev):
+    """Two width-1.0 serving sessions co-trained by `serving.train_many`
+    on the pool slot's card: the first phase (random masks) launches K1
+    K times at B = 2 and no K2; the second runs one stacked selection (K2
+    once, its three digit passes counted as one launch) and K1 K times
+    again. The deltas land on the edges, which stay on the card."""
+    from repro_torch.core import batched
+    from repro_torch.core.server import AMSConfig
+    from repro_torch.models.seg.student import SegConfig, make_student
+    from repro_torch.serving import GPUPool, train_many
+    from repro_torch.sim.multiclient import build_sessions
+
+    seg = SegConfig(n_classes=5, width=1.0)
+    ams = AMSConfig(t_update=5.0, t_horizon=20.0, k_iters=4, batch_size=4,
+                    gamma=0.05, lr=2e-3)
+    sessions = build_sessions(2, make_student(seg, 0, dev), seg, ams,
+                              duration=20.0,
+                              video_kw=dict(height=64, width=64, fps=2.0))
+    slot = GPUPool(1, device_backend="torch").device(0).torch_device
+    assert slot == dev
+    for s in sessions:
+        s.label_and_ingest(list(range(8)), 4.0)
+    info0 = batched.update_pipeline_info()
+    for t, k2 in ((5.0, 0), (10.0, 1)):
+        adam_ops.launches = topk_ops.launches = 0
+        deltas = train_many(sessions, t, device=slot)
+        torch.cuda.synchronize()
+        assert (adam_ops.launches, topk_ops.launches) == (ams.k_iters, k2)
+        for s, d in zip(sessions, deltas):
+            s.apply_delta(d, t, t + 1.0)
+    info = batched.update_pipeline_info()
+    assert info["stacked_select_launches"] - info0["stacked_select_launches"] == 1
+    assert info["stacked_encode_sessions"] - info0["stacked_encode_sessions"] == 4
+    for s in sessions:
+        assert s.phases == 2
+        assert all(l.device == dev for l in tree.leaves(
+            (s.session.params, s.session.opt_state, s.edge.active)))
+        s.evaluate(12.0)
+        assert 0.0 <= s.mious[-1] <= 1.0
