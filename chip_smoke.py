@@ -27,14 +27,26 @@ its own:
    NaN and infinities: threshold bits exact, masks byte-identical (also
    to a sort's threshold); then its time, the plain version's,
    ``torch.kthvalue``'s and the bound;
-4. the main path: 8 AMS sessions of the width-4.0 segmentation student on
-   8 seeded synthetic videos at 256x256, batch 8, K=20, gamma=0.05,
-   through 3 fused phases (the first with random masks, then two
-   gradient-guided), deltas encoded, applied by each edge client and
-   scored by mIoU on held-out frames. The kernels' launch counts are set
-   to 0 just before and read just after; afterwards both kernels are held
-   against their plain versions again on the run's real updates and
-   gradients, and each stage of a phase is timed on its own;
+4. the main path. First one eager fused iteration of its shape (8
+   sessions x 8 frames of 256x256) traced with ``torch.profiler``: the
+   device's busy share, the kernel launches, device time by kernel group.
+   Then 8 AMS sessions of the width-4.0 segmentation student on 8 seeded
+   synthetic videos at 256x256, batch 8, K=20, gamma=0.05, through 3
+   fused phases (the first with random masks, then two gradient-guided)
+   under the ``auto`` execution shape: the first phase races the CUDA
+   graph of the K loop against the eager loop (one warm and two timed
+   runs of each; winner and times printed), the other two hit the cache.
+   Deltas are encoded, applied by each edge client and scored by mIoU on
+   held-out frames. The kernels' launch counts are set to 0 just before
+   and read just after, and K1's must be exactly K per eager loop and per
+   graph replay plus one per warm-up before a capture (the race's runs
+   included), K2's one per gradient-guided phase. Afterwards both kernels
+   are held against their plain versions again on the run's real updates
+   and gradients; the flat-layout optimizer loop against the tree steps
+   it replaced (bit for bit); one phase through the eager loop twice and
+   the graph twice, with the distances between them; and each stage of a
+   phase is timed on its own, the flat-layout Adam step beside the tree
+   step;
 5. the streaming schemes (``sim/runner.run_scheme``, the paper's Table 1):
    the width-4.0 student pretrained on the card (``pretrain_student``,
    ``PRETRAIN_STEPS`` steps from seed 42 on 256x256 videos), then all
@@ -55,12 +67,15 @@ its own:
    from 0 and must equal what the engine's and the update pipeline's own
    counters imply (K1: K per trained group, fused or singleton; K2: one
    per gradient-guided selection, stacked or solo); at least one fused
-   group of B >= 2 must train. Prints the groups by B, mIoU (mean and per
+   group of B >= 2 must train. Each new (B, K) key races the two shapes,
+   and the race's runs count too. Prints the auto decisions and race
+   times, the groups by B, mIoU (mean and per
    client), phases served, deferred and dropped, mean up/down Kbps, mean
    and max delta latency, events, wall time, and the engine's drift
    report: per stage the measured steady seconds on the card against
    ``GPUCostModel``'s modeled seconds;
-7. the LLM serving path: Gemma-2 9B at full width and depth (42 layers,
+7. the LLM serving path, after ``batched.cache_clear()`` has released the
+   fused phase's graphs and their memory: Gemma-2 9B at full width and depth (42 layers,
    d_model 3584, random bf16 weights drawn on the card from seed 0), a
    batch of 2 random prompts of 8,000 tokens, prefill, then 64 greedy
    decode steps through ``launch.serve.serve``, once cold and once timed
@@ -112,7 +127,7 @@ from repro_torch.core import batched, selection, timing  # noqa: E402
 from repro_torch.core.batched import stack_trees, train_phases_fused  # noqa: E402
 from repro_torch.core.client import EdgeClient  # noqa: E402
 from repro_torch.core.delta import encode_delta, encode_delta_stack  # noqa: E402
-from repro_torch.core.masked_adam import masked_adam_update  # noqa: E402
+from repro_torch.core.masked_adam import init_state, masked_adam_update  # noqa: E402
 from repro_torch.core.server import AMSConfig, AMSSession, Task  # noqa: E402
 from repro_torch.data.video import VideoConfig  # noqa: E402
 from repro_torch.device import host_to_device  # noqa: E402
@@ -134,7 +149,7 @@ from repro_torch.models.layers import apply_norm, embed_apply  # noqa: E402
 from repro_torch.models.registry import build as build_model  # noqa: E402
 from repro_torch.models.seg.student import SegConfig, make_student, seg_param_count  # noqa: E402
 from repro_torch.models.seg.teacher import train_teacher  # noqa: E402
-from repro_torch.serving import ServingConfig  # noqa: E402
+from repro_torch.serving import ServingConfig, debug_snapshot  # noqa: E402
 from repro_torch.sim import runner  # noqa: E402
 from repro_torch.sim.multiclient import run_multiclient  # noqa: E402
 from repro_torch.sim.seg_world import SegWorld, phi_pixel_loss, pretrain_student  # noqa: E402
@@ -428,6 +443,84 @@ def k2_phase(dev, bw, flops):
 # ---------------------------------------------------------------------------
 
 
+def race_label(key) -> str:
+    """``(B, K)`` of a fused phase's compile key (its struct's first leaf
+    carries B; K follows the struct)."""
+    struct = key[1]
+    return f"({struct[1][0][0][0]}, {key[2]})"
+
+
+def ams_iteration_trace(dev):
+    """One eager fused iteration of the main path's shape (8 sessions of
+    the width-4.0 student, 8 frames of 256x256 each, the flat-layout step)
+    traced with `torch.profiler` after two untraced runs: the device's
+    busy share (kernel time over the host clock around the synchronised
+    call), the kernel launches and the device time by kernel group."""
+    seg = SegConfig(n_classes=5, width=WIDTH)
+    lg = SegWorld(video=None, teacher=None, seg_cfg=seg).loss_and_grad
+    params = stack_trees([make_student(seg, seed=i, device=dev) for i in range(B)])
+    opt = stack_trees([init_state(make_student(seg, seed=i, device=dev)) for i in range(B)])
+    g = torch.Generator(device=dev).manual_seed(21)
+    mask = tree.tree_map(lambda l: torch.rand(l.shape, generator=g, device=dev) < FRAC,
+                         params)
+    frames = torch.rand((1, B, 8, HW, HW, 3), generator=g, device=dev)
+    labels = torch.randint(0, 5, (1, B, 8, HW, HW), generator=g, device=dev,
+                           dtype=torch.int32)
+    args = (params, opt, mask, frames, labels)
+    batched.set_exec_mode("loop")
+    try:
+        step = batched.fused_phase_fn(lg, struct=tree.struct(args), k_iters=1,
+                                      optimizer="adam", lr=2e-3, b1=0.9, b2=0.999,
+                                      eps=1e-8, momentum=0.9, device=dev)
+    finally:
+        batched.set_exec_mode("auto")
+    for _ in range(2):
+        step(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups: dict = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        name, low = ev.name, ev.name.lower()
+        if "masked_adam" in name:
+            grp = "K1 masked Adam"
+        elif any(k in low for k in ("conv", "cudnn", "implicit", "wgrad", "dgrad",
+                                    "xmma", "sm90_", "gemm", "nvjet")):
+            grp = "convolutions and matrix products"
+        elif any(k in low for k in ("copy", "cat", "fill")):
+            grp = "copies, concats and fills"
+        else:
+            grp = "other elementwise and reductions"
+        e = groups.setdefault(grp, [0.0, 0])
+        e[0] += ev.time_range.elapsed_us() / 1e3
+        e[1] += 1
+    dev_ms = sum(t for t, _ in groups.values())
+    n = sum(c for _, c in groups.values())
+    check(n > 0 and dev_ms > 0, "the profiler recorded device kernels")
+    busy_us, end = 0.0, float("-inf")  # the union of the kernels' intervals
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy = busy_us / 1e3 / wall_ms
+    print(f"AMS iteration trace ({B} sessions x 8 frames of {HW}x{HW}, eager, flat "
+          f"layout): wall {wall_ms:.2f} ms, device busy {busy_us / 1e3:.2f} ms (union of "
+          f"the kernels' intervals; their sum {dev_ms:.2f} ms, so kernels overlap), busy "
+          f"share {busy:.3f}, {n} kernel launches")
+    for grp, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {grp:34s} {t:9.3f} ms {100 * t / dev_ms:5.1f}%  {c} launches")
+    batched.cache_clear()
+    return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3, kernel_sum_ms=dev_ms,
+                busy_share=busy, launches=n, groups={k: v[0] for k, v in groups.items()})
+
+
 def main_path(dev):
     seg = SegConfig(n_classes=5, width=WIDTH)
     check(seg_param_count(seg) == N_PARAMS, "student size")
@@ -462,6 +555,9 @@ def main_path(dev):
     print(f"main path: {B} sessions x width-{WIDTH} student ({N_PARAMS} params), "
           f"{HW}x{HW} frames, batch {ams.batch_size}, K={ams.k_iters}, "
           f"gamma={ams.gamma}; mIoU before training {edge_miou():.4f}")
+    batched.cache_clear()
+    batched.set_exec_mode("auto")
+    exec0 = batched.exec_info()
     adam_ops.launches = 0
     topk_ops.launches = 0
     for phase in range(3):
@@ -491,10 +587,23 @@ def main_path(dev):
               f"selected {[int(d.values.size) for d in deltas]}; edge mIoU {score:.4f}")
     launches = {"masked_adam_3d": adam_ops.launches,
                 "topk_threshold_bits": topk_ops.launches}
-    print(f"main path launches: {launches}")
-    check(launches["masked_adam_3d"] >= 60, "K1 ran on the main path")
-    check(launches["topk_threshold_bits"] >= 2, "K2 ran on the main path")
-    return sessions, launches
+    ran = {k: v - exec0[k] for k, v in batched.exec_info().items()}
+    ((_, race),) = batched.race_info().items()
+    # K per eager loop and per graph replay, 1 per warm-up before a capture;
+    # the first phase was the race: 1 warm + 2 timed runs of each shape
+    want_k1 = ams.k_iters * (ran["loop_runs"] + ran["graph_replays"]) + ran["warm_iters"]
+    print(f"main path launches: {launches}, want K1 {want_k1} (runs {ran}); auto race "
+          f"at ({B}, {ams.k_iters}) (the first phase): winner {race['winner']}, best of 2 graph "
+          f"{race['graph_s']:.4f} s, loop {race['loop_s']:.4f} s; cache "
+          f"{batched.cache_info()}")
+    check(launches["masked_adam_3d"] == want_k1, "K1 launches exact on the main path")
+    check(ran["loop_runs"] + ran["graph_replays"] == 3 + 5
+          and ran["graph_captures"] == ran["warm_iters"] == 1,
+          f"one race (6 runs) and two cached phases: {ran}")
+    check(batched.cache_info() == {"size": 1, "hits": 2, "misses": 1},
+          f"the fused phase cache: {batched.cache_info()}")
+    check(launches["topk_threshold_bits"] == 2, "K2 once per gradient-guided phase")
+    return sessions, launches, dict(race=race, runs=ran, want_k1=want_k1)
 
 
 def check_delta(s, c, d, old, phase):
@@ -539,6 +648,127 @@ def recheck_on_run(dev, sessions):
     return err1, err2
 
 
+def exec_shape_check(dev, sessions):
+    """The flat-layout K loop against the tree steps it replaced, and the
+    graph shape against the eager loop, on the run's own state.
+
+    * K1's optimizer loop on 3 real stacked gradients: flattened once and
+      stepped by `masked_adam_flat`, against 3 calls of the tree step
+      `masked_adam_stacked`; every output bit for bit.
+    * One whole phase (K=20 replay batches from a separate RNG) through
+      the eager loop twice and the CUDA graph twice: whether two eager runs
+      agree bit for bit, and the graph's distance from the loop (params'
+      fp16 ULPs, and the next phase's top-k masks of u), held to 3x the
+      run-to-run spread. The second replay is traced with `torch.profiler`:
+      its masked_adam_kernel launches must be K, the count K1's counter
+      adds per replay."""
+    cfg = sessions[0].cfg
+    params = stack_trees([s.params for s in sessions])
+    opt = stack_trees([s.opt_state for s in sessions])
+    mask = selection.stacked_gradient_guided_masks(
+        stack_trees([s.u_prev for s in sessions]), FRAC)
+    rng = np.random.default_rng(4)
+    batches = [[s.buffer.sample(rng, cfg.batch_size, 30.0) for _ in range(cfg.k_iters)]
+               for s in sessions]
+    frames = host_to_device(np.stack([np.stack([b[0] for b in bs])
+                                      for bs in batches], axis=1), dev)
+    labels = host_to_device(np.stack([np.stack([b[1] for b in bs])
+                                      for bs in batches], axis=1), dev)
+    vgrad = torch.func.vmap(sessions[0].task.loss_and_grad)
+    grads = [vgrad(params, frames[k], labels[k])[1] for k in range(3)]
+    again = vgrad(params, frames[0], labels[0])[1]
+    grad_leaves_differing = sum(not torch.equal(a, b) for a, b in
+                                zip(tree.leaves(grads[0]), tree.leaves(again)))
+    print(f"vmapped loss/grad twice on the same inputs: {grad_leaves_differing} of "
+          f"{len(tree.leaves(again))} gradient leaves differ")
+    del again
+    hp = dict(lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps)
+    p_t, s_t, u_t = params, opt, None
+    for gr in grads:
+        p_t, s_t, u_t = adam_ops.masked_adam_stacked(p_t, gr, s_t, mask, **hp)
+    plan = stacking.stack_plan(params)
+    p, m, v, msk = (stacking.flatten_tree(t, plan) for t in (params, opt.m, opt.v, mask))
+    count = opt.count
+    for gr in grads:
+        p, m, v, u, count = adam_ops.masked_adam_flat(p, gr, m, v, msk, count, plan, **hp)
+    flat = [stacking.unflatten_tree(x, plan) for x in (p, m, v, u)]
+    torch.cuda.synchronize()
+    check(torch.equal(count, s_t.count) and all(
+        torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        for a, b in zip(tree.leaves((p_t, s_t.m, s_t.v, u_t)), tree.leaves(flat))),
+        "the flat-layout K loop differs from the tree steps")
+    print("flat-layout K loop (3 real gradients at B=8): bitwise equal to the tree "
+          "steps masked_adam_stacked")
+    del grads, p_t, s_t, u_t, flat
+    args = (params, opt, mask, frames, labels)
+    runners = {}
+    for mode in ("loop", "graph"):
+        batched.set_exec_mode(mode)
+        try:
+            runners[mode] = batched.fused_phase_fn(
+                sessions[0].task.loss_and_grad, struct=tree.struct(args),
+                k_iters=cfg.k_iters, optimizer=cfg.optimizer, momentum=cfg.momentum,
+                device=dev, **hp)
+        finally:
+            batched.set_exec_mode("auto")
+    outs = {}
+    for run in ("loop", "loop2", "graph"):
+        outs[run] = runners[run.rstrip("2")](*args)
+    torch.cuda.synchronize()
+    # K1's counter adds the captured launches at each replay; trace one
+    # replay to see that many masked_adam_kernel launches on the device
+    n0 = adam_ops.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        outs["graph2"] = runners["graph"](*args)
+        torch.cuda.synchronize()
+    traced = sum(ev.device_type == torch.autograd.DeviceType.CUDA
+                 and "masked_adam_kernel" in ev.name for ev in prof.events())
+    counted = adam_ops.launches - n0
+    print(f"one graph replay traced: {traced} masked_adam_kernel launches on the device, "
+          f"{counted} added to K1's counter, K={cfg.k_iters}")
+    check(traced == counted == cfg.k_iters,
+          f"K1 under replay: traced {traced}, counted {counted}, want {cfg.k_iters}")
+
+    def same(a, b):
+        return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                   for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+    def ulps(a, b):  # per coordinate, in fp16 units (the wire's type)
+        def key(x):
+            i = x.to(torch.float16).view(torch.int16).to(torch.int32)
+            return torch.where(i < 0, -32768 - i, i)
+        return torch.cat([(key(x) - key(y)).abs().reshape(-1)
+                          for x, y in zip(tree.leaves(a), tree.leaves(b))])
+
+    def distance(x, y):
+        """Params' fp16 ULPs (max, share over 1) and the next phase's
+        selection: the share of coordinates the top-k masks of u disagree on."""
+        d = ulps(outs[x][0], outs[y][0])
+        m_x, m_y = (torch.cat([l.reshape(-1) for l in tree.leaves(
+            selection.stacked_gradient_guided_masks(outs[r][2], FRAC))]) for r in (x, y))
+        return dict(bitwise=same(outs[x], outs[y]), params_max_ulps=int(d.max()),
+                    params_share_over_1_ulp=float((d > 1).float().mean()),
+                    next_mask_share_differing=float((m_x != m_y).float().mean()))
+
+    res = {f"{x}_vs_{y}": distance(x, y)
+           for x, y in (("loop2", "loop"), ("graph", "loop"), ("graph2", "graph"))}
+    res["grad_leaves_differing_run_to_run"] = grad_leaves_differing
+    res["k1_kernels_per_replay_traced"] = traced
+    print(f"graph vs loop, one phase at ({B}, {cfg.k_iters}) on the run's state: "
+          f"{json.dumps(res)}")
+    e, r, g = res["loop2_vs_loop"], res["graph2_vs_graph"], res["graph_vs_loop"]
+    check(g["bitwise"] or not e["bitwise"],
+          "the eager loop is deterministic but the graph differs from it")
+    # where the eager loop is not deterministic, the graph must stay within
+    # 3x the larger run-to-run spread, two eager runs' or two replays'
+    # (PERF.md §6: within 1.2x of the eager one on the H100)
+    for x in ("params_share_over_1_ulp", "next_mask_share_differing"):
+        check(g[x] <= 3 * max(e[x], r[x]),
+              f"graph vs loop {x} {g[x]} beyond 3x the run-to-run spread "
+              f"(eager {e[x]}, replays {r[x]})")
+    return res
+
+
 def phase_breakdown(dev, sessions):
     """Where a fused phase's time goes: each stage of the phase timed on
     its own, on the run's own state (replay batches drawn from a separate
@@ -562,17 +792,35 @@ def phase_breakdown(dev, sessions):
     vgrad = torch.func.vmap(sessions[0].task.loss_and_grad)
     grad_ms = time_ms(lambda: vgrad(params, frames[0], labels[0]), reps=5)
     _, grads = vgrad(params, frames[0], labels[0])
-    adam_ms = time_ms(lambda: adam_ops.masked_adam_stacked(
-        params, grads, opt, mask, lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps))
+    hp = dict(lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps)
+    tree_ms = time_ms(lambda: adam_ops.masked_adam_stacked(params, grads, opt, mask, **hp))
+    tree_dev_ms = device_ms(lambda: adam_ops.masked_adam_stacked(params, grads, opt, mask,
+                                                                 **hp))
+    plan = stacking.stack_plan(params)
+    flat = [stacking.flatten_tree(t, plan) for t in (params, opt.m, opt.v, mask)]
+
+    def flat_step():  # the K loop's step: grads concat + K1 + the next params' views
+        out = adam_ops.masked_adam_flat(flat[0], grads, flat[1], flat[2], flat[3],
+                                        opt.count, plan, **hp)
+        return stacking.unflatten_tree(out[0], plan)
+
+    adam_ms = time_ms(flat_step)
+    adam_dev_ms = device_ms(flat_step)
     select_ms = time_ms(lambda: selection.stacked_gradient_guided_masks(u, FRAC))
     encode_ms = time_ms(lambda: encode_delta_stack(params, mask, B), reps=3)
     k = cfg.k_iters
     total = prepare_ms + k * (grad_ms + adam_ms) + select_ms + encode_ms
     print(f"phase breakdown (ms, each stage timed alone): prepare+H2D "
           f"{prepare_ms:.1f}; {k} x vmapped loss/grad {grad_ms:.2f} = "
-          f"{k * grad_ms:.1f}; {k} x stacked masked Adam (flatten + K1 + "
-          f"views) {adam_ms:.3f} = {k * adam_ms:.2f}; stacked selection "
-          f"{select_ms:.3f}; encode {encode_ms:.1f}; sum {total:.1f}")
+          f"{k * grad_ms:.1f}; {k} x flat-layout masked Adam (grads concat + K1 + "
+          f"param views) {adam_ms:.3f} (device {adam_dev_ms:.4f}) = {k * adam_ms:.2f}; "
+          f"stacked selection {select_ms:.3f}; encode {encode_ms:.1f}; sum {total:.1f}; "
+          f"beside it the tree step masked_adam_stacked (5 trees flattened, one cat "
+          f"each + K1 + views) {tree_ms:.3f} (device {tree_dev_ms:.4f})")
+    return dict(prepare_ms=prepare_ms, grad_ms=grad_ms, adam_ms=adam_ms,
+                adam_device_ms=adam_dev_ms, tree_step_ms=tree_ms,
+                tree_step_device_ms=tree_dev_ms, select_ms=select_ms,
+                encode_ms=encode_ms, sum_ms=total)
 
 
 # ---------------------------------------------------------------------------
@@ -809,6 +1057,7 @@ def serving_path(dev, pre):
     cfg = ServingConfig(duration=SERVE_S, device_backend="torch")
     torch.cuda.synchronize()
     info0, snap = batched.update_pipeline_info(), timing.snapshot()
+    exec0, races0 = batched.exec_info(), batched.race_info()
     zero_launches()
     t0 = time.perf_counter()
     r = run_multiclient(SERVE_CLIENTS, pre, seg, ams, duration=SERVE_S,
@@ -829,9 +1078,14 @@ def serving_path(dev, pre):
     groups = {1: singletons} if singletons else {}
     for (b, _), n in sorted(stacked.items()):
         groups[b] = groups.get(b, 0) + n
-    n_groups = sum(stacked.values()) + singletons
+    ran = {k: v - exec0[k] for k, v in batched.exec_info().items()}
+    races = {k: v for k, v in batched.race_info().items() if k not in races0}
     solo_selects = sum(calls("select_solo").values())
-    want = {"K1": ams.k_iters * n_groups,
+    # K per singleton phase, per eager loop and per graph replay; 1 per
+    # warm-up before a capture. A stacked call that missed the cache raced
+    # the two shapes: 3 runs of each, 5 more than a cached call.
+    want = {"K1": ams.k_iters * (singletons + ran["loop_runs"] + ran["graph_replays"])
+            + ran["warm_iters"],
             "K2": info["stacked_select_launches"] + solo_selects}
     phases = r["phases_per_client"]
     print(f"serving: {SERVE_CLIENTS} clients x {seg_param_count(seg):,} params, "
@@ -845,6 +1099,15 @@ def serving_path(dev, pre):
     check(sum(calls("select_stacked").values()) == info["stacked_select_launches"],
           "serving: stacked selections timed as counted")
     check(launches == want, f"serving: launches {launches}, want {want}")
+    check(ran["loop_runs"] + ran["graph_replays"] == sum(stacked.values()) + 5 * len(races),
+          f"serving: {ran} for {sum(stacked.values())} stacked calls, {len(races)} races")
+    modes = debug_snapshot()["auto_exec_modes"]
+    print(f"serving: exec runs {ran}; auto_exec_modes {modes}; races "
+          + "; ".join(f"{race_label(key)} {backend}:{abs(hash(key)) % 10**8:08d} "
+                      f"winner {v['winner']} "
+                      f"graph {v['graph_s']:.4f} s loop {v['loop_s']:.4f} s"
+                      for (backend, key), v in races.items())
+          + f"; cache {batched.cache_info()}")
     check(any(b >= 2 for b, _ in stacked), "serving: a fused group of B >= 2 trained")
     check(all(math.isfinite(m) and 0.0 <= m <= 1.0 for m in r["miou_per_client"]),
           "serving: every client's mIoU finite and in [0, 1]")
@@ -874,7 +1137,8 @@ def serving_path(dev, pre):
               f"{'none (unpriced)' if ratio is None else f'{ratio:.3f}'}; first calls "
               f"{e['compile_s']:.3f} s")
     print("SERVING " + json.dumps(dict(
-        wall_s=wall, groups_by_b=groups, launches=launches,
+        wall_s=wall, groups_by_b=groups, launches=launches, exec_runs=ran,
+        races={race_label(k): v for (_, k), v in races.items()},
         **{k: r[k] for k in ("mean_miou", "miou_per_client", "phases_served",
                              "phases_deferred", "dropped_requests", "mean_up_kbps",
                              "mean_down_kbps", "delta_latency_mean_s",
@@ -1137,6 +1401,9 @@ def k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops):
                 transcendental_ms=sfu_ms, tflops=tflops, local_tflops=local_tflops)
 
 
+T_START = time.perf_counter()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this needs one NVIDIA GPU")
@@ -1168,11 +1435,15 @@ def main() -> None:
     k1 = k1_phase(dev, bw, flops)
     k2 = k2_phase(dev, bw, flops)
 
-    # 4. the main path
-    sessions, launches = main_path(dev)
+    # 4. the main path: one traced eager iteration, then 3 fused phases
+    # under the auto exec shape, then the shapes against each other
+    trace = ams_iteration_trace(dev)
+    sessions, launches, main_exec = main_path(dev)
     err1, err2 = recheck_on_run(dev, sessions)
-    phase_breakdown(dev, sessions)
+    shapes = exec_shape_check(dev, sessions)
+    breakdown = phase_breakdown(dev, sessions)
     del sessions
+    batched.cache_clear()
     torch.cuda.empty_cache()
 
     # 5. the streaming schemes
@@ -1187,7 +1458,10 @@ def main() -> None:
     del pre
     torch.cuda.empty_cache()
 
-    # 7. the LLM serving path, then K3 and K4 on its own data
+    # 7. the LLM serving path, then K3 and K4 on its own data; the fused
+    # phase's graphs and their memory pools go first
+    batched.cache_clear()
+    torch.cuda.empty_cache()
     cfg, params, prompt, llm, llm_cold, llm_launches, peak = llm_path(dev)
     norm_in, qkv_local, qkv_global = llm_layer_inputs(cfg, params, prompt)
     del params
@@ -1201,6 +1475,10 @@ def main() -> None:
              source="src/repro_torch/csrc/masked_adam.cu",
              replaces="src/repro/kernels/masked_adam/masked_adam.py:64",
              launches=launches["masked_adam_3d"],
+             main_path_exec_runs=main_exec["runs"], main_path_race=main_exec["race"],
+             flat_step_ms=breakdown["adam_ms"], flat_step_device_ms=breakdown["adam_device_ms"],
+             tree_step_ms=breakdown["tree_step_ms"],
+             tree_step_device_ms=breakdown["tree_step_device_ms"],
              runner_launches=sum(v["K1"] for v in runner_launches.values()),
              runner_launches_by_run={k: v["K1"] for k, v in runner_launches.items()},
              serving_launches=serving_launches["K1"],
@@ -1250,14 +1528,24 @@ def main() -> None:
              local_bound_share=k4["local_bound_ms"] / k4["local_ms"],
              sass=sass),
     ]
+    print(f"AMS summary: eager iteration busy share {trace['busy_share']:.3f} "
+          f"({trace['launches']} launches, wall {trace['wall_ms']:.2f} ms); race at "
+          f"({B}, 20) winner {main_exec['race']['winner']} (graph "
+          f"{main_exec['race']['graph_s']:.4f} s, loop {main_exec['race']['loop_s']:.4f} s); "
+          f"graph vs loop {json.dumps(shapes)}; flat masked Adam "
+          f"{breakdown['adam_ms']:.3f} ms an iteration (device "
+          f"{breakdown['adam_device_ms']:.4f}; the tree step {breakdown['tree_step_ms']:.3f}, "
+          f"device {breakdown['tree_step_device_ms']:.4f})")
     print(f"streaming schemes summary: phase {schemes_s:.1f} s; sequential ams phase "
           f"stages {json.dumps({k: round(v, 3) for k, v in seq.items()})}")
     print(f"serving summary: groups by B {serving_groups}, mean mIoU "
           f"{serving['mean_miou']:.4f}, drift_ratio train_fused "
           f"{serving['observability']['drift'].get('train_fused', {}).get('drift_ratio')}")
-    print(f"LLM summary: prefill {llm['prefill_ms']:.1f} ms (cold "
+    print(f"LLM summary: prefill {llm['prefill_ms']:.1f} ms (the previous slice's runs "
+          f"on an H100 80GB HBM3 at 700 W: 678.6-686.4; cold "
           f"{llm_cold['prefill_ms']:.1f}), decode {llm['decode_ms_per_token']:.3f} "
           f"ms/token (cold {llm_cold['decode_ms_per_token']:.3f}), peak {peak:,} bytes")
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

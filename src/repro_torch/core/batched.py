@@ -5,24 +5,54 @@ student), so B co-resident sessions' training phases need not be B
 separate K-iteration loops: stack their ``(params, opt_state, mask,
 replay batches)`` along a leading session axis, run the K iterations of a
 `torch.func.vmap`-ed loss/grad followed by ONE fused masked-Adam launch
-over the whole stack per iteration (momentum SGD, which has no kernel, is
-a `vmap` of the plain `momentum_update`), then select the next phase's
-masks with one stacked top-k launch and encode the B wire deltas with one
-device-to-host pull.
+per param dtype over the whole stack per iteration (momentum SGD, which
+has no kernel, is a `vmap` of the plain `momentum_update`), then select
+the next phase's masks with one stacked top-k launch and encode the B
+wire deltas with one device-to-host pull.
 
 `vmap` keeps each session's maths its own: the student's folded-norm
 statistics are taken over one session's batch, never over the stack
 (folding B into the convolution batch axis would change them).
 
+The K loop keeps Adam's inputs in the kernel's flat layout: params,
+moments and mask are flattened into ``(B, rows, 128)`` buffers once per
+phase (`kernels.stacking.flatten_tree`), the loss/grad reads the params
+as views into the flat params buffer, each iteration flattens only the
+gradients (`kernels.masked_adam.ops.masked_adam_flat`), and the new
+params, state and last update are unflattened once, after the loop. It
+is bitwise equal to K calls of the tree step `masked_adam_stacked`.
+
+Execution shape, as in the JAX package (`set_exec_mode`):
+
+* ``"loop"``: the K iterations run eagerly from Python, as K dispatches
+  of the vmapped step (the JAX package's ``"loop"``);
+* ``"graph"``: the whole K loop captured once per compile key into a
+  `torch.cuda.CUDAGraph` and replayed per phase, so the host issues one
+  launch for the phase: the port's counterpart of the JAX package's
+  ``"scan"`` (K iterations inside one ``lax.scan`` launch). CUDA only;
+* ``"auto"`` (the default): the first call per compile key on a CUDA
+  device races both shapes on the caller's real batch (one warm run,
+  then the best of 2, ties broken lexically), records the winner and
+  both times, and caches only the winner. On a CPU device the only shape
+  is ``"loop"``, recorded without a race.
+
+Phase runners are cached at module level per compile key (loss callable,
+stacked shapes and dtypes, K, optimizer and its hyperparameters, device)
+plus the resolved shape; `cache_info` counts hits and misses (a race is
+one miss). The graphs of one device share one memory pool: the engine
+replays one group at a time, and each replay's outputs are cloned out of
+the graph's memory before anything else runs.
+
 A singleton group runs the sequential `AMSSession._run_phase_prepared`
-loop, as in the JAX package. The K loop is a Python loop; PyTorch runs
-eagerly, so there is no executable cache to keep.
+loop, as in the JAX package.
 
 Observability: `update_pipeline_info` counts the stacked selections and
-batched encodes and the sessions they covered, and the K iterations of a
-stacked group are timed as stage ``train_fused`` (`core.timing`), the
-first call with a given ``(B, K)`` in the process in the first-call
-bucket (cuDNN picks its algorithms and the CUDA sources build there).
+batched encodes and the sessions they covered, `exec_info` the loop runs,
+graph captures, graph replays and warm-up iterations, and the K
+iterations of a stacked group are timed as stage ``train_fused``
+(`core.timing`) under key ``(B, K)``; a call that missed the cache (the
+race, a capture, cuDNN's first algorithm choice) lands in the first-call
+bucket.
 """
 from __future__ import annotations
 
@@ -39,7 +69,8 @@ from repro_torch.core import selection, timing
 from repro_torch.core.delta import encode_delta_stack
 from repro_torch.core.masked_adam import momentum_update
 from repro_torch.device import host_to_device
-from repro_torch.kernels.masked_adam.ops import masked_adam_stacked
+from repro_torch.kernels import stacking
+from repro_torch.kernels.masked_adam import ops as adam_ops
 
 # ---------------------------------------------------------------------------
 # struct-of-arrays stack / unstack
@@ -57,6 +88,278 @@ def unstack_tree(t, n: int) -> list:
     """Inverse of `stack_trees`: split the leading axis back into B trees
     (views into the stacked leaves)."""
     return [tree.tree_map(lambda l: l[i], t) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# module-level cache of phase runners, and the execution shape
+# ---------------------------------------------------------------------------
+
+_PHASE_CACHE: dict = {}
+_HITS = 0
+_MISSES = 0
+
+_EXEC_MODE = "auto"  # "auto" | "graph" | "loop"
+# measured winners: (backend, base key) -> "graph" | "loop"; each settled
+# by one race on the first real call (or "loop" without a race off CUDA)
+_AUTO_MODES: dict = {}
+# (backend, base key) -> {"winner", "graph_s", "loop_s"}: each race's times
+_RACES: dict = {}
+# device -> the memory pool its phase graphs share
+_POOLS: dict = {}
+# what ran: eager K loops, graph captures and replays, and the one-step
+# warm-ups before each capture (K1 launches once in each, under Adam)
+_EXEC_STATS = {"loop_runs": 0, "graph_captures": 0, "graph_replays": 0,
+               "warm_iters": 0}
+
+
+def set_exec_mode(mode: str) -> None:
+    """Force the phase's execution shape: ``graph`` (the K loop captured
+    once into a CUDA graph and replayed, the JAX package's ``scan``),
+    ``loop`` (K eager dispatches of the vmapped step), or ``auto`` (the
+    first fused call per compile key races both and keeps the measured
+    winner; ``loop`` without a race off CUDA). Cached runners of the other
+    shape are kept; the key includes the resolved shape. A ``graph`` call
+    on a CPU group raises."""
+    if mode not in ("auto", "graph", "loop"):
+        raise ValueError(f"exec mode must be auto|graph|loop, got {mode!r}")
+    global _EXEC_MODE
+    _EXEC_MODE = mode
+
+
+def auto_mode_info() -> dict:
+    """The auto decisions: {(backend, compile key): "graph"|"loop"}. Empty
+    until an ``auto``-mode fused call has settled a key."""
+    return dict(_AUTO_MODES)
+
+
+def race_info() -> dict:
+    """Each race's outcome: {(backend, compile key): {"winner", "graph_s",
+    "loop_s"}}, the times the best of 2 timed runs of each shape."""
+    return {k: dict(v) for k, v in _RACES.items()}
+
+
+def exec_info() -> dict:
+    """Counters of what ran: eager K loops (``loop_runs``), graph
+    captures and replays, and the one-iteration warm-ups before each
+    capture (``warm_iters``). Under Adam, K1 launches K times per loop run
+    and per replay and once per warm-up."""
+    return dict(_EXEC_STATS)
+
+
+def cache_info() -> dict:
+    """How often did sessions share a phase runner?"""
+    return {"size": len(_PHASE_CACHE), "hits": _HITS, "misses": _MISSES}
+
+
+def cache_clear() -> None:
+    """Drop every cached runner and auto decision, and with them the CUDA
+    graphs, their static buffers and their pools' memory."""
+    global _HITS, _MISSES
+    graphs = any(isinstance(fn, _GraphPhase) for fn in _PHASE_CACHE.values())
+    _PHASE_CACHE.clear()
+    _AUTO_MODES.clear()
+    _RACES.clear()
+    _POOLS.clear()
+    _HITS = _MISSES = 0
+    if graphs:
+        torch.cuda.empty_cache()
+
+
+class _Phase:
+    """The K loop of one compile key, run eagerly: the ``loop`` shape, and
+    the body that the ``graph`` shape captures.
+
+    ``prepare`` lays the phase's inputs out for the loop (under Adam:
+    params, moments and mask flattened once into ``(B, rows, 128)``
+    buffers), ``run`` is the K loop over them, ``finish`` turns its
+    outputs back into ``(params, opt_state, u, losses)`` trees (views into
+    the flat buffers; nothing is copied back)."""
+
+    def __init__(self, loss_and_grad, optimizer: str, lr: float, b1: float,
+                 b2: float, eps: float, momentum: float):
+        self.vgrad = torch.func.vmap(loss_and_grad)
+        self.adam = optimizer == "adam"
+        if self.adam:
+            self.step = functools.partial(adam_ops.masked_adam_flat, lr=lr,
+                                          b1=b1, b2=b2, eps=eps)
+        else:  # momentum SGD has no kernel: its vmapped tree form
+            self.step = torch.func.vmap(functools.partial(
+                momentum_update, lr=lr, momentum=momentum))
+        self.plan = self.state_type = None
+
+    def prepare(self, params, opt, mask, frames, labels) -> tuple:
+        if not self.adam:
+            return params, opt, mask, frames, labels
+        self.plan = stacking.stack_plan(params)
+        self.state_type = type(opt)
+        return (*(stacking.flatten_tree(t, self.plan)
+                  for t in (params, opt.m, opt.v, mask)),
+                opt.count, frames, labels)
+
+    def run(self, *inputs) -> tuple:
+        if not self.adam:
+            params, opt, mask, frames, labels = inputs
+            u = losses = None
+            for k in range(frames.shape[0]):
+                losses, grads = self.vgrad(params, frames[k], labels[k])
+                params, opt, u = self.step(params, grads, opt, mask)
+            return params, opt, u, losses
+        p, m, v, mask, count, frames, labels = inputs
+        u = losses = None
+        for k in range(frames.shape[0]):
+            losses, grads = self.vgrad(stacking.unflatten_tree(p, self.plan),
+                                       frames[k], labels[k])
+            p, m, v, u, count = self.step(p, grads, m, v, mask, count,
+                                          self.plan)
+        return p, m, v, u, count, losses
+
+    def finish(self, out) -> tuple:
+        if not self.adam:
+            return out
+        p, m, v, u, count, losses = out
+        trees = [stacking.unflatten_tree(b, self.plan) for b in (p, m, v, u)]
+        return (trees[0], self.state_type(trees[1], trees[2], count),
+                trees[3], losses)
+
+    def __call__(self, params, opt, mask, frames, labels):
+        _EXEC_STATS["loop_runs"] += 1
+        return self.finish(self.run(*self.prepare(params, opt, mask, frames,
+                                                  labels)))
+
+
+class _GraphPhase:
+    """The ``graph`` shape: `_Phase.run`'s whole K loop captured into one
+    `torch.cuda.CUDAGraph` at the first call, after a one-iteration warm-up
+    on a side stream (cuDNN's workspaces, autograd's lazy state), and
+    replayed at every call with that call's inputs copied into the
+    graph's static buffers. The port's counterpart of the JAX package's
+    ``lax.scan`` shape.
+
+    A capture that fails raises; nothing falls back to the eager loop.
+    K1's launch counter counts at capture, where nothing runs, so the
+    captured launches are taken back then and added at every replay."""
+
+    def __init__(self, phase: _Phase, pool):
+        self.phase, self.pool = phase, pool
+        self.graph = self.static = self.out = None
+        self.k1_launches = 0
+
+    def _capture(self, inputs, dev) -> None:
+        self.static = tree.tree_map(torch.clone, inputs)
+        *head, frames, labels = self.static
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.phase.run(*head, frames[:1], labels[:1])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        _EXEC_STATS["warm_iters"] += 1
+        graph = torch.cuda.CUDAGraph()
+        n0 = adam_ops.launches
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.out = self.phase.run(*self.static)
+        finally:
+            self.k1_launches = adam_ops.launches - n0
+            adam_ops.launches = n0
+        self.graph = graph
+        _EXEC_STATS["graph_captures"] += 1
+
+    def __call__(self, params, opt, mask, frames, labels):
+        inputs = self.phase.prepare(params, opt, mask, frames, labels)
+        dev = frames.device
+        with torch.cuda.device(dev):
+            if self.graph is None:
+                self._capture(inputs, dev)
+            else:
+                for dst, src in zip(tree.leaves(self.static),
+                                    tree.leaves(inputs)):
+                    dst.copy_(src)
+            self.graph.replay()
+            adam_ops.launches += self.k1_launches
+            _EXEC_STATS["graph_replays"] += 1
+            # the outputs live in the graph's pool, which the next replay
+            # of this graph or of another one on the device overwrites
+            out = tree.tree_map(torch.clone, self.out)
+        return self.phase.finish(out)
+
+
+def _pool(device):
+    pool = _POOLS.get(device)
+    if pool is None:
+        pool = _POOLS[device] = torch.cuda.graph_pool_handle()
+    return pool
+
+
+def _timed_best(fn, args):
+    timing.block(fn(*args))  # warm-up (a graph's capture), off the clock
+    best, out = float("inf"), None
+    for _ in range(2):  # best of 2: damp scheduler and GC jitter
+        t0 = time.perf_counter()
+        out = fn(*args)
+        timing.block(out)
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def fused_phase_fn(loss_and_grad, *, struct: Hashable, k_iters: int,
+                   optimizer: str, lr: float, b1: float, b2: float,
+                   eps: float, momentum: float, device):
+    """The cached phase runner for one compile key: a callable
+    ``(params, opt_state, mask, frames, labels) -> (params, opt_state, u,
+    losses)`` over B-stacked trees and ``(K, B, ...)`` batches.
+
+    Keyed by the loss callable itself (sessions built from the same task
+    share it), the stacked shape-dtype struct of every input, K, the
+    optimizer recipe and the device: N same-shaped sessions cost one
+    miss, not N. Under ``auto`` an undecided key on a CUDA device returns
+    a racer: it times one warm and two timed runs of each shape on the
+    caller's batch, records the winner (`auto_mode_info`) and both times
+    (`race_info`), caches only the winner and returns the winner's output.
+    A race is one miss; the loser is dropped uncounted."""
+    global _HITS, _MISSES
+    device = torch.device(device)
+    backend = device.type
+    base_key = (loss_and_grad, struct, k_iters, optimizer, lr, b1, b2, eps,
+                momentum, device)
+    mode = _EXEC_MODE
+    if mode == "auto":
+        mode = _AUTO_MODES.get((backend, base_key))
+        if mode is None and backend != "cuda":
+            mode = _AUTO_MODES[(backend, base_key)] = "loop"  # nothing to race
+    elif mode == "graph" and backend != "cuda":
+        raise ValueError(f"exec mode 'graph' needs a CUDA device; the group "
+                         f"is on {device}")
+
+    def build(m):
+        phase = _Phase(loss_and_grad, optimizer, lr, b1, b2, eps, momentum)
+        return phase if m == "loop" else _GraphPhase(phase, _pool(device))
+
+    if mode is not None:
+        key = base_key + (mode,)
+        fn = _PHASE_CACHE.get(key)
+        if fn is None:
+            _MISSES += 1
+            fn = _PHASE_CACHE[key] = build(mode)
+        else:
+            _HITS += 1
+        return fn
+    _MISSES += 1
+
+    def race(*args):
+        outs, times = {}, {}
+        for m in ("loop", "graph"):
+            fn = build(m)
+            times[m], out = _timed_best(fn, args)
+            outs[m] = (fn, out)
+        winner = min(times, key=lambda m: (times[m], m))  # ties: lexical
+        _AUTO_MODES[(backend, base_key)] = winner
+        _RACES[(backend, base_key)] = {"winner": winner,
+                                       "graph_s": times["graph"],
+                                       "loop_s": times["loop"]}
+        _PHASE_CACHE[base_key + (winner,)] = outs[winner][0]
+        return outs[winner][1]
+
+    return race
 
 
 def _mask_struct(s, mask) -> Hashable:
@@ -91,10 +394,6 @@ def _group_key(s, mask, frames, labels) -> Hashable:
 # per-session. The serving engine snapshots this around a run.
 _UPDATE_STATS = {"stacked_select_launches": 0, "stacked_select_sessions": 0,
                  "stacked_encode_launches": 0, "stacked_encode_sessions": 0}
-
-# (B, K) keys a stacked group has trained at in this process: the first
-# call per key lands in the timing's first-call bucket
-_TRAIN_SEEN: set = set()
 
 
 def update_pipeline_info() -> dict:
@@ -189,12 +488,14 @@ def train_phases_fused(sessions: list, t_now: float,
 
 
 def _launch_stacked(members, device=None):
-    """Stack one group and run its K fused train iterations.
+    """Stack one group and run its K fused train iterations through the
+    cached phase runner of its compile key (`fused_phase_fn`).
 
     Returns ``(params, opt, u, losses, mask)``, all stacked along the
-    session axis and still on the device. With timing on, the K iterations
-    alone (after the stacking and the host-to-device copy) are recorded as
-    stage ``train_fused`` under key ``(B, K)``."""
+    session axis and still on the device. With timing on, the phase alone
+    (after the stacking and the host-to-device copy) is recorded as stage
+    ``train_fused`` under key ``(B, K)``, in the first-call bucket when it
+    missed the cache."""
     ss = [m[1] for m in members]
     s0 = ss[0]
     cfg = s0.cfg
@@ -207,31 +508,25 @@ def _launch_stacked(members, device=None):
     # batches: per-session (K, batch, ...) -> (K, B, batch, ...)
     frames = host_to_device(np.stack([m[3] for m in members], axis=1), dev)
     labels = host_to_device(np.stack([m[4] for m in members], axis=1), dev)
-    vgrad = torch.func.vmap(s0.task.loss_and_grad)
-    if cfg.optimizer == "adam":
-        step = functools.partial(masked_adam_stacked, lr=cfg.lr, b1=cfg.b1,
-                                 b2=cfg.b2, eps=cfg.eps)
-    else:
-        step = torch.func.vmap(functools.partial(
-            momentum_update, lr=cfg.lr, momentum=cfg.momentum))
+    miss0 = _MISSES
+    phase = fused_phase_fn(
+        s0.task.loss_and_grad,
+        struct=tree.struct((params, opt, mask, frames, labels)),
+        k_iters=cfg.k_iters, optimizer=cfg.optimizer, lr=cfg.lr, b1=cfg.b1,
+        b2=cfg.b2, eps=cfg.eps, momentum=cfg.momentum, device=frames.device)
     record = timing.enabled()
     if record:
-        key = (len(members), cfg.k_iters)
-        first = key not in _TRAIN_SEEN
-        _TRAIN_SEEN.add(key)
         timing.block((params, opt, mask, frames, labels))
         t0 = time.perf_counter()
-    u = losses = None
-    for k in range(cfg.k_iters):
-        losses, grads = vgrad(params, frames[k], labels[k])
-        params, opt, u = step(params, grads, opt, mask)
+    params, opt, u, losses = phase(params, opt, mask, frames, labels)
     if record:
         timing.block((params, opt, u, losses))
         # nbytes: the optimizer update's traffic only (33 B per coordinate
         # and iteration, forward/backward excluded), as in the JAX package
-        timing.record("train_fused", time.perf_counter() - t0, first=first,
-                      key=key, nbytes=(len(members) * cfg.k_iters * 33
-                                       * selection.tree_size(s0.params)))
+        timing.record("train_fused", time.perf_counter() - t0,
+                      first=_MISSES > miss0, key=(len(members), cfg.k_iters),
+                      nbytes=(len(members) * cfg.k_iters * 33
+                              * selection.tree_size(s0.params)))
     return params, opt, u, losses, mask
 
 

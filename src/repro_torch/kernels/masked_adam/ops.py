@@ -6,7 +6,10 @@ wrapper raises on what the kernel does not take); a CPU tensor takes the
 plain version, `ref.masked_adam_ref`. `masked_adam_stacked` is the fused
 training path's entry: a B-stacked ``(params, grads, state, mask)`` tree
 runs as one launch per distinct param dtype over buffers laid out by
-`repro_torch.kernels.stacking`.
+`repro_torch.kernels.stacking`. `masked_adam_flat` is the same step for
+a caller that keeps p, m, v and the mask in that flat layout across
+steps (the fused phase's K loop): only the gradients are flattened, one
+``torch.cat`` per dtype group, and the outputs stay flat.
 
 ``launches`` counts kernel launches (plain-version calls do not count).
 """
@@ -114,3 +117,23 @@ def masked_adam_stacked(params, grads, state, mask, *, lr=1e-3, b1=0.9,
             stacking.unflatten_group(buf, group, b, plan.shapes, out=out)
     p_new, m_new, v_new, u = (tree.unflatten(plan.treedef, o) for o in outs)
     return p_new, type(state)(m_new, v_new, i), u
+
+
+def masked_adam_flat(p, grads, m, v, mask, count, plan, *, lr=1e-3, b1=0.9,
+                     b2=0.999, eps=1e-8):
+    """One masked-Adam step over already-flat per-dtype buffers.
+
+    ``p``, ``m``, ``v`` and ``mask`` are tuples of ``(B, rows, 128)``
+    buffers, one per group of ``plan`` (`stacking.flatten_tree`);
+    ``grads`` is the B-stacked gradient tree, flattened here; ``count`` is
+    the (B,) Adam step count. Returns ``(p', m', v', u, count')``, the
+    buffers as tuples in the same layout. The arithmetic is
+    `masked_adam_stacked`'s, launch for launch: the flat layout is an
+    exact re-layout, so the two agree bit for bit."""
+    i, bc = bias_correction(count, lr=lr, b1=b1, b2=b2)
+    bc = bc.reshape(plan.b)
+    g = stacking.flatten_tree(grads, plan)
+    outs = [masked_adam_3d(*bufs, bc, b1=b1, b2=b2, eps=eps)
+            for bufs in zip(p, g, m, v, mask)]
+    p_new, m_new, v_new, u = (tuple(o[j] for o in outs) for j in range(4))
+    return p_new, m_new, v_new, u, i

@@ -3,14 +3,21 @@
 The stacked kernels (masked Adam, bit-pattern top-k) want each session's
 parameters as ONE lane-aligned buffer, ``(B, rows, 128)``, so a whole fused
 group moves through device memory in a single launch instead of one per
-leaf. The flatten is a copy into a zeroed buffer and the unflatten is slice
-+ view: both bit-exact re-layouts, so a kernel output unstacks to exactly
-the per-leaf tensors a per-leaf update would have produced. Unflattened
-leaves are views into the kernel's output buffer; nothing is copied back.
+leaf. The flatten is one ``torch.cat`` of the leaves' B-major views and
+the zero padding, and the unflatten is slice + view: both bit-exact
+re-layouts, so a kernel output unstacks to exactly the per-leaf tensors a
+per-leaf update would have produced. Unflattened leaves are views into
+the kernel's output buffer; nothing is copied back.
 
 A `StackPlan` caches the host-side bookkeeping per shape/dtype struct:
 leaf order grouped by dtype (groups in sorted dtype-name order, leaves in
 flatten order), per-leaf sizes and offsets, and the row count.
+
+`flatten_tree` / `unflatten_tree` do the same for a whole tree at once,
+one buffer per dtype group: the fused phase keeps params, Adam moments
+and the mask in that flat layout for a whole K loop
+(`kernels.masked_adam.ops.masked_adam_flat`), flattening each tree once
+per phase and each iteration's gradients once per iteration.
 """
 from __future__ import annotations
 
@@ -80,12 +87,9 @@ def stack_plan(stacked) -> StackPlan:
     return plan
 
 
-def flatten_group(leaves, group: DtypeGroup, b: int, transform=None):
-    """Concat a dtype group's leaves into the kernel buffer
-    ``(B, rows, LANES)``, zero-padded past ``group.n``. ``transform`` maps
-    each leaf elementwise before it is written; the padding stays zero.
-    Every (transformed) leaf of the group must share one dtype, which is
-    the buffer's."""
+def _group_parts(leaves, group: DtypeGroup, b: int, transform=None) -> list:
+    """The group's (transformed) leaves as ``(B, n_leaf)`` views, checked
+    to share one dtype."""
     parts = []
     for i in group.indices:
         l = leaves[i] if transform is None else transform(leaves[i])
@@ -95,11 +99,21 @@ def flatten_group(leaves, group: DtypeGroup, b: int, transform=None):
         raise ValueError(
             f"dtype group {group.dtype!r} mixes leaf dtypes "
             f"{sorted({dtype_name(p.dtype) for p in parts})}")
-    buf = torch.zeros((b, group.rows * LANES), dtype=dtype,
-                      device=parts[0].device)
-    for off, size, p in zip(group.offsets, group.sizes, parts):
-        buf[:, off:off + size] = p
-    return buf.view(b, group.rows, LANES)
+    return parts
+
+
+def flatten_group(leaves, group: DtypeGroup, b: int, transform=None):
+    """Concat a dtype group's leaves into the kernel buffer
+    ``(B, rows, LANES)``, zero-padded past ``group.n``: ONE ``torch.cat``
+    of the B-major leaf views and the padding. ``transform`` maps each leaf
+    elementwise before it is written; the padding stays zero. Every
+    (transformed) leaf of the group must share one dtype, which is the
+    buffer's."""
+    parts = _group_parts(leaves, group, b, transform)
+    pad = group.rows * LANES - group.n
+    if pad:
+        parts.append(parts[0].new_zeros((b, pad)))
+    return torch.cat(parts, dim=1).view(b, group.rows, LANES)
 
 
 def unflatten_group(buf, group: DtypeGroup, b: int, shapes, out: list) -> None:
@@ -109,3 +123,21 @@ def unflatten_group(buf, group: DtypeGroup, b: int, shapes, out: list) -> None:
     flat = buf.reshape(b, group.rows * LANES)
     for i, size, off in zip(group.indices, group.sizes, group.offsets):
         out[i] = flat[:, off:off + size].view(shapes[i])
+
+
+def flatten_tree(t, plan: StackPlan) -> tuple:
+    """A stacked tree laid out like ``plan``'s (same structure and shapes;
+    leaf dtypes may differ from the plan's, one per group) as one
+    ``(B, rows, LANES)`` buffer per dtype group, in ``plan.groups``
+    order."""
+    leaves = tree.leaves(t)
+    return tuple(flatten_group(leaves, g, plan.b) for g in plan.groups)
+
+
+def unflatten_tree(bufs, plan: StackPlan):
+    """Inverse of `flatten_tree`: the tree whose leaves are views into
+    ``bufs``."""
+    out = [None] * len(plan.shapes)
+    for buf, g in zip(bufs, plan.groups):
+        unflatten_group(buf, g, plan.b, plan.shapes, out)
+    return tree.unflatten(plan.treedef, out)

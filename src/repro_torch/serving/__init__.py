@@ -62,9 +62,10 @@ deterministic Chrome trace-event JSON — open it at https://ui.perfetto.dev
 per-stream utilization). The engine's results dict is assembled from
 `obs.MetricsRegistry`, an ``observability`` section reports the
 modeled-vs-measured cost audit (`obs.drift_report` over `core.timing`
-stage stats), and `obs.debug_snapshot` unifies the fused path's counters
-with the stage timing totals. Tracing defaults off and the recorder never
-changes the schedule: two runs, traced or not, pop identical events.
+stage stats), and `obs.debug_snapshot` unifies the fused path's runner
+cache, exec-shape decisions and counters with the stage timing totals.
+Tracing defaults off and the recorder never changes the schedule: two
+runs, traced or not, pop identical events.
 
 Fault model (`serving.faults`): chaos is a *plan*, not a dice roll.
 ``ServingConfig(faults=FaultPlan(...))`` injects a seeded, fully

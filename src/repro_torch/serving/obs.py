@@ -617,12 +617,23 @@ def drift_report(cost, stats: dict | None = None) -> dict:
 
 
 def debug_snapshot() -> dict:
-    """One call answering "what got fused and what did it cost": the fused
-    update pipeline's counters (`core.batched.update_pipeline_info`) beside
-    the stage timing totals (`core.timing`)."""
+    """One call answering "what got fused, what was cached and what did it
+    cost": the fused phase's runner cache and its auto exec-shape
+    decisions (`core.batched.cache_info`, `auto_mode_info`; keys as
+    ``"<backend>:<8-digit key hash>"``, as in the JAX package), the fused
+    update pipeline's counters (`update_pipeline_info`) and the stage
+    timing totals (`core.timing`). The JAX package's ``kernel_dispatch``,
+    ``stacked_select_cache``, ``stacked_encode_cache`` and ``sharded`` have
+    no counterpart here: a CUDA tensor always takes its kernel, selection
+    and encode build nothing per key, and sharded execution is not
+    ported."""
     from repro_torch.core import batched, timing
 
     return {
+        "fused_train_cache": batched.cache_info(),
+        "auto_exec_modes": {f"{backend}:{abs(hash(base)) % 10**8:08d}": mode
+                            for (backend, base), mode
+                            in batched.auto_mode_info().items()},
         "update_pipeline": batched.update_pipeline_info(),
         "stage_timings": timing.totals(),
     }

@@ -14,6 +14,16 @@ Also on the card, though no kernel of the port computes it: the
 student's ReLU6 gradient at its kinks (0.5, as the JAX package's
 ``jnp.clip``; ROADMAP F9), whose closed-interval bound below 0 is a
 subnormal.
+
+The fused phase's execution shapes (`core/batched.py`): the K loop as one
+CUDA graph against the eager loop at B = 3 and 8, bit for bit on a loss
+whose backward is deterministic; on the student, whose backward is not
+(two eager runs differ), the share of parameters more than 1 fp16 ULP
+apart from the eager run may be at most 3x the largest share between two
+of three eager runs. Also K1's launch count under replay (the counter and
+a profiler trace of one replay), the auto race's record, no aliasing
+between groups replayed through one graph, and `cache_clear` returning
+the graphs' memory.
 """
 import numpy as np
 import pytest
@@ -344,12 +354,15 @@ def test_student_relu6_gradient_at_the_kinks(dev, dtype):
     assert x.grad.tolist() == [0.0, 0.0, 0.5, 0.5, 1.0, 1.0, 0.5, 0.0]
 
 
-def test_train_many_fuses_on_the_card_with_exact_launches(dev):
+@pytest.mark.parametrize("mode", ["loop", "graph"])
+def test_train_many_fuses_on_the_card_with_exact_launches(dev, mode):
     """Two width-1.0 serving sessions co-trained by `serving.train_many`
     on the pool slot's card: the first phase (random masks) launches K1
     K times at B = 2 and no K2; the second runs one stacked selection (K2
     once, its three digit passes counted as one launch) and K1 K times
-    again. The deltas land on the edges, which stay on the card."""
+    again. Under ``graph`` the first phase also warms one iteration before
+    its capture (one more K1), and every replay counts its K launches.
+    The deltas land on the edges, which stay on the card."""
     from repro_torch.core import batched
     from repro_torch.core.server import AMSConfig
     from repro_torch.models.seg.student import SegConfig, make_student
@@ -367,13 +380,20 @@ def test_train_many_fuses_on_the_card_with_exact_launches(dev):
     for s in sessions:
         s.label_and_ingest(list(range(8)), 4.0)
     info0 = batched.update_pipeline_info()
-    for t, k2 in ((5.0, 0), (10.0, 1)):
-        adam_ops.launches = topk_ops.launches = 0
-        deltas = train_many(sessions, t, device=slot)
-        torch.cuda.synchronize()
-        assert (adam_ops.launches, topk_ops.launches) == (ams.k_iters, k2)
-        for s, d in zip(sessions, deltas):
-            s.apply_delta(d, t, t + 1.0)
+    batched.cache_clear()
+    batched.set_exec_mode(mode)
+    try:
+        for t, k2, warm in ((5.0, 0, 1), (10.0, 1, 0)):
+            adam_ops.launches = topk_ops.launches = 0
+            deltas = train_many(sessions, t, device=slot)
+            torch.cuda.synchronize()
+            extra = warm if mode == "graph" else 0
+            assert (adam_ops.launches, topk_ops.launches) == (ams.k_iters + extra, k2)
+            for s, d in zip(sessions, deltas):
+                s.apply_delta(d, t, t + 1.0)
+    finally:
+        batched.set_exec_mode("auto")
+        batched.cache_clear()
     info = batched.update_pipeline_info()
     assert info["stacked_select_launches"] - info0["stacked_select_launches"] == 1
     assert info["stacked_encode_sessions"] - info0["stacked_encode_sessions"] == 4
@@ -383,3 +403,214 @@ def test_train_many_fuses_on_the_card_with_exact_launches(dev):
             (s.session.params, s.session.opt_state, s.edge.active)))
         s.evaluate(12.0)
         assert 0.0 <= s.mious[-1] <= 1.0
+
+
+def _phase_inputs(dev, b, k=3, hw=32, seed=0):
+    """A B-stacked width-1.0 student group on the card: params, Adam state
+    at different step counts, a 5% mask, K seeded batches of 4 frames."""
+    from repro_torch.core import batched
+    from repro_torch.models.seg.student import SegConfig, make_student
+    from repro_torch.sim.seg_world import SegWorld
+
+    seg = SegConfig(n_classes=5, width=1.0)
+    lg = SegWorld(video=None, teacher=None, seg_cfg=seg).loss_and_grad
+    params = batched.stack_trees([make_student(seg, seed + i, dev) for i in range(b)])
+    st = masked_adam.init_state(params)
+    opt = st._replace(count=torch.arange(b, dtype=torch.int32, device=dev) * 3)
+    rng = np.random.default_rng(seed)
+    mask = tree.tree_map(lambda l: torch.from_numpy(rng.random(l.shape) < 0.05).to(dev),
+                         params)
+    frames = torch.from_numpy(rng.random((k, b, 4, hw, hw, 3), np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 5, (k, b, 4, hw, hw), np.int32)).to(dev)
+    return lg, (params, opt, mask, frames, labels)
+
+
+def _runner(lg, args, mode):
+    from repro_torch.core import batched
+
+    batched.set_exec_mode(mode)
+    try:
+        return batched.fused_phase_fn(
+            lg, struct=tree.struct(args), k_iters=args[3].shape[0], optimizer="adam",
+            lr=2e-3, b1=0.9, b2=0.999, eps=1e-8, momentum=0.9, device=args[3].device)
+    finally:
+        batched.set_exec_mode("auto")
+
+
+def _fp16_ulps(a, b):
+    def key(x):
+        i = x.to(torch.float16).view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return (key(a) - key(b)).abs()
+
+
+def _bitwise(x, y):
+    return all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(tree.leaves(x), tree.leaves(y)))
+
+
+def _mlp_loss_and_grad(params, frames, labels):
+    """A loss whose gradient has no atomics (matrix products, tanh, a
+    mean), so two eager runs agree bit for bit."""
+    def loss(p):
+        x = frames.reshape(frames.shape[0], -1)[:, :96]
+        y = labels.reshape(labels.shape[0], -1)[:, :5].to(torch.float32)
+        h = torch.tanh(x @ p["w1"] + p["b1"])
+        return ((h @ p["w2"] - y) ** 2).mean()
+
+    grads, value = torch.func.grad_and_value(loss)(params)
+    return value, grads
+
+
+def _mlp_inputs(dev, b, k=3):
+    rng = np.random.default_rng(b)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    params = {"w1": t(b, 96, 64, scale=0.1), "b1": t(b, 64, scale=0.1),
+              "w2": t(b, 64, 5, scale=0.1)}
+    opt = masked_adam.init_state(params)._replace(
+        count=torch.arange(b, dtype=torch.int32, device=dev))
+    mask = tree.tree_map(lambda l: torch.from_numpy(rng.random(l.shape) < 0.3).to(dev),
+                         params)
+    frames = torch.from_numpy(rng.random((k, b, 4, 8, 8, 3), np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 5, (k, b, 4, 8, 8), np.int32)).to(dev)
+    return _mlp_loss_and_grad, (params, opt, mask, frames, labels)
+
+
+@pytest.mark.parametrize("b", [3, 8])
+def test_graph_phase_is_the_loop_bitwise(dev, b):
+    """The graph replays the eager loop's kernels in the same order: where
+    two eager runs agree bit for bit, the graph agrees with them too."""
+    from repro_torch.core import batched
+
+    batched.cache_clear()
+    lg, args = _mlp_inputs(dev, b)
+    loop, graph = _runner(lg, args, "loop"), _runner(lg, args, "graph")
+    out_l1, out_l2 = loop(*args), loop(*args)
+    out_g1, out_g2 = graph(*args), graph(*args)
+    torch.cuda.synchronize()
+    assert _bitwise(out_l1, out_l2)  # the premise: this loss is deterministic
+    assert _bitwise(out_g1, out_l1) and _bitwise(out_g2, out_l1)
+    batched.cache_clear()
+
+
+@pytest.mark.parametrize("b", [3, 8])
+def test_graph_phase_on_the_student_within_the_eager_spread(dev, b):
+    """The student's backward is not deterministic on the card (two eager
+    runs differ), so its graph is held to the eager loop's own run-to-run
+    spread: the share of parameters more than 1 fp16 ULP apart, at most 3x
+    the largest share between two of three eager runs."""
+    from repro_torch.core import batched
+
+    batched.cache_clear()
+    lg, args = _phase_inputs(dev, b)
+    loop, graph = _runner(lg, args, "loop"), _runner(lg, args, "graph")
+    eager = [loop(*args) for _ in range(3)]
+    out_g1 = graph(*args)
+    torch.cuda.synchronize()
+
+    def share(x, y):
+        d = torch.cat([_fp16_ulps(a, c).reshape(-1)
+                       for a, c in zip(tree.leaves(x[0]), tree.leaves(y[0]))])
+        return float((d > 1).float().mean())
+
+    if all(_bitwise(x, eager[0]) for x in eager[1:]):
+        assert _bitwise(out_g1, eager[0])
+    spread = max(share(eager[i], eager[j]) for i, j in ((0, 1), (0, 2), (1, 2)))
+    got = share(out_g1, eager[0])
+    print(f"B={b}: graph vs eager {got}, eager spread {spread}")
+    assert got <= 3 * spread
+    for a in tree.leaves(out_g1):
+        assert bool(torch.isfinite(a.float()).all())
+    batched.cache_clear()
+
+
+def test_graph_replay_counts_k1_launches_exactly(dev):
+    from repro_torch.core import batched
+
+    batched.cache_clear()
+    lg, args = _phase_inputs(dev, 3, k=5)
+    graph = _runner(lg, args, "graph")
+    info0 = batched.exec_info()
+    adam_ops.launches = 0
+    graph(*args)
+    torch.cuda.synchronize()
+    assert adam_ops.launches == 5 + 1  # one warm-up iteration, one replay
+    for n in (2, 3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            graph(*args)
+            torch.cuda.synchronize()
+        assert adam_ops.launches == 5 * n + 1
+        # what the counter adds per replay is what the device ran
+        assert sum(ev.device_type == torch.autograd.DeviceType.CUDA
+                   and "masked_adam_kernel" in ev.name for ev in prof.events()) == 5
+    info = batched.exec_info()
+    assert {k: info[k] - info0[k] for k in info} == {
+        "loop_runs": 0, "graph_captures": 1, "graph_replays": 3, "warm_iters": 1}
+    batched.cache_clear()
+
+
+def test_auto_race_records_a_winner_and_both_times(dev):
+    from repro_torch.core import batched
+
+    batched.cache_clear()
+    lg, args = _phase_inputs(dev, 3)
+    adam_ops.launches = 0
+    race = _runner(lg, args, "auto")
+    out = race(*args)
+    torch.cuda.synchronize()
+    # 1 warm + 2 timed runs of each shape, and the capture's warm-up step
+    assert adam_ops.launches == 3 * 6 + 1
+    ((backend, key), rec), = batched.race_info().items()
+    assert backend == "cuda" and rec["winner"] in ("graph", "loop")
+    assert rec["graph_s"] > 0 and rec["loop_s"] > 0
+    assert rec["winner"] == min(("graph", "loop"), key=lambda m: (rec[f"{m}_s"], m))
+    assert batched.auto_mode_info() == {(backend, key): rec["winner"]}
+    assert batched.cache_info() == {"size": 1, "hits": 0, "misses": 1}
+    again = _runner(lg, args, "auto")
+    assert batched.cache_info() == {"size": 1, "hits": 1, "misses": 1}
+    assert len(tree.leaves(again(*args))) == len(tree.leaves(out))
+    batched.cache_clear()
+
+
+def test_groups_through_one_graph_do_not_alias(dev):
+    """The second group's replay overwrites the graph's outputs; the first
+    group's results were cloned out and keep their values."""
+    from repro_torch.core import batched
+
+    batched.cache_clear()
+    lg, args1 = _phase_inputs(dev, 3, seed=0)
+    _, args2 = _phase_inputs(dev, 3, seed=10)
+    graph = _runner(lg, args1, "graph")
+    assert _runner(lg, args2, "graph") is graph  # one compile key
+    out1 = graph(*args1)
+    kept = tree.tree_map(torch.clone, out1)
+    out2 = graph(*args2)
+    torch.cuda.synchronize()
+    assert _bitwise(out1, kept)
+    assert not _bitwise(out1[0], out2[0])
+    batched.cache_clear()
+
+
+def test_cache_clear_returns_the_graph_memory(dev):
+    from repro_torch.core import batched
+
+    batched.cache_clear()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(dev)
+    lg, args = _phase_inputs(dev, 8, hw=64)
+    graph = _runner(lg, args, "graph")
+    graph(*args)
+    torch.cuda.synchronize()
+    del args
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(dev)
+    assert held > base  # the graph's pool and static buffers
+    del graph
+    batched.cache_clear()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(dev) < held
+    assert torch.cuda.memory_reserved(dev) <= base + (held - base) // 4

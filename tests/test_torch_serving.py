@@ -429,7 +429,12 @@ def test_timing_block_waits_for_nothing_on_the_cpu():
 
 
 def test_debug_snapshot_keeps_the_port_counters():
+    """The JAX package's keys minus the four with no counterpart in the
+    port (kernel dispatch races, selection/encode executable caches,
+    sharded execution)."""
     snap = t_serving.debug_snapshot()
-    assert set(snap) == {"update_pipeline", "stage_timings"}
-    assert set(snap["update_pipeline"]) == set(
-        j_serving.debug_snapshot()["update_pipeline"])
+    j_snap = j_serving.debug_snapshot()
+    assert set(snap) == set(j_snap) - {"kernel_dispatch", "stacked_select_cache",
+                                       "stacked_encode_cache", "sharded"}
+    assert set(snap["update_pipeline"]) == set(j_snap["update_pipeline"])
+    assert set(snap["fused_train_cache"]) == set(j_snap["fused_train_cache"])
