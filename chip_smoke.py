@@ -73,7 +73,8 @@ its own:
    client), phases served, deferred and dropped, mean up/down Kbps, mean
    and max delta latency, events, wall time, and the engine's drift
    report: per stage the measured steady seconds on the card against
-   ``GPUCostModel``'s modeled seconds;
+   ``GPUCostModel``'s modeled seconds, and its `serving_stage_report`
+   (model efficiency, HBM roofline fraction, bottleneck);
 7. the LLM serving path, after ``batched.cache_clear()`` has released the
    fused phase's graphs and their memory: Gemma-2 9B at full width and depth (42 layers,
    d_model 3584, random bf16 weights drawn on the card from seed 0), a
@@ -92,10 +93,29 @@ its own:
    (K4's TFLOP/s and share of its bound printed), their plain versions and
    a PyTorch call (``F.rms_norm``; for K4 at softcap 0,
    ``scaled_dot_product_attention``); K3 must take its warp-per-row
-   variant at the prefill's shape and its split-row one at the decode's;
-8. one JSON line ``{"kernels": [...]}`` with every kernel's launches, error
-   against its plain version, times and bound;
-9. the last line, ``{"ok": true, "device": {...}}``.
+   variant at the prefill's shape and its split-row one at the decode's.
+   The run's prefill and decode times are divided by
+   ``roofline.analytic``'s FLOPs and bytes at the card's data-sheet peaks
+   (``launch/mesh.py``): prefill MFU and bound share, decode HBM share;
+8. the MoE serving path, after Gemma-2's weights are freed (the device's
+   allocated memory must drop by their size): Moonlight-16B-A3B at full
+   width and depth (48 layers, 64 routed experts top-6 and 2 shared,
+   28,552,923,136 random bf16 parameters drawn on the card from seed 0),
+   the same batch, prompts and decode steps, once cold and once timed
+   (tokens equal), peak memory under the card's; K3 97 launches in
+   prefill and 97 per decode step, K4 48 in prefill, all bf16, and 0 in
+   decode. K3 held against its plain version on the run's layer-0 input;
+   K4 at the run's shape (2, 8000, 16, 1, 128) on N(0, 1) inputs (its
+   plain version one batch row at a time), and on the run's layer-0 q,
+   k, v, where the softmax is nearly a hard max and the outputs cancel,
+   against attention in float64, as often within one bf16 ulp of it as
+   its plain version is; both timed, K4 beside its bound and
+   ``scaled_dot_product_attention(is_causal=True)``, which computes the
+   same function there; the shares of the analytic bound as for Gemma-2;
+9. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
+   and K4's on both LLM paths), error against its plain version, times
+   and bound;
+10. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; it does so too without CUDA, and when ``src/`` is missing (the
@@ -140,8 +160,10 @@ from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
 from repro_torch.kernels.topk_mask import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.topk_mask import ref as topk_ref  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16  # noqa: E402
 from repro_torch.launch.serve import (MAIN_BATCH, MAIN_DECODE, MAIN_PROMPT,  # noqa: E402
-                                      main_path_inputs, serve)
+                                      MOE_BATCH, MOE_DECODE, MOE_PROMPT,
+                                      main_path_inputs, moe_path_inputs, serve)
 from repro_torch.metrics.miou import miou  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import _proj_qkv  # noqa: E402
@@ -149,6 +171,8 @@ from repro_torch.models.layers import apply_norm, embed_apply  # noqa: E402
 from repro_torch.models.registry import build as build_model  # noqa: E402
 from repro_torch.models.seg.student import SegConfig, make_student, seg_param_count  # noqa: E402
 from repro_torch.models.seg.teacher import train_teacher  # noqa: E402
+from repro_torch.roofline.analysis import roofline_terms, serving_stage_report  # noqa: E402
+from repro_torch.roofline.analytic import ShapeSpec, analytic_cost  # noqa: E402
 from repro_torch.serving import ServingConfig, debug_snapshot  # noqa: E402
 from repro_torch.sim import runner  # noqa: E402
 from repro_torch.sim.multiclient import run_multiclient  # noqa: E402
@@ -186,6 +210,8 @@ PRETRAIN_STEPS, TEACHER_STEPS = 120, 150
 # slot bound to the card, fair policy, up to 8 sessions per fused group;
 # everything else (stationary_frac 0.3, eval_stride 6, LinkSpec()) default
 SERVE_CLIENTS, SERVE_S, SERVE_FUSE = 8, 60.0, 8
+# what follows a traced replay inside its trace (exec_shape_check)
+PAD_LAUNCHES, TRACE_PAUSE_S = 512, 0.2
 
 
 def peaks(name: str):
@@ -716,16 +742,29 @@ def exec_shape_check(dev, sessions):
         outs[run] = runners[run.rstrip("2")](*args)
     torch.cuda.synchronize()
     # K1's counter adds the captured launches at each replay; trace one
-    # replay to see that many masked_adam_kernel launches on the device
+    # replay to see that many masked_adam_kernel launches on the device.
+    # The tracer drops records from the end of a trace that stops right
+    # after the work (on an H100: up to 623 of ~33,000 kernel records, the
+    # last iteration's K1 among them in 6 of 40 traced replays; after a
+    # 0.2 s pause at most 5, and K1's in none of 20). So the replay is
+    # followed, inside the trace, by PAD_LAUNCHES small launches and that
+    # pause.
     n0 = adam_ops.launches
+    pad = torch.zeros(1, device=dev)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         outs["graph2"] = runners["graph"](*args)
         torch.cuda.synchronize()
-    traced = sum(ev.device_type == torch.autograd.DeviceType.CUDA
-                 and "masked_adam_kernel" in ev.name for ev in prof.events())
+        for _ in range(PAD_LAUNCHES):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAUSE_S)
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    traced = sum("masked_adam_kernel" in k for k in kernels)
     counted = adam_ops.launches - n0
     print(f"one graph replay traced: {traced} masked_adam_kernel launches on the device, "
-          f"{counted} added to K1's counter, K={cfg.k_iters}")
+          f"{counted} added to K1's counter, K={cfg.k_iters} ({len(kernels)} kernel "
+          f"records, {PAD_LAUNCHES} padding launches after the replay)")
     check(traced == counted == cfg.k_iters,
           f"K1 under replay: traced {traced}, counted {counted}, want {cfg.k_iters}")
 
@@ -1136,6 +1175,16 @@ def serving_path(dev, pre):
               f"{e['modeled_steady_s']:.3f} s; drift_ratio "
               f"{'none (unpriced)' if ratio is None else f'{ratio:.3f}'}; first calls "
               f"{e['compile_s']:.3f} s")
+    report = serving_stage_report(drift)
+    for st, e in report["stages"].items():
+        frac = e["roofline_fraction"]
+        eff = e["model_efficiency"]
+        print(f"serving stage report {st}: measured {e['measured_s']:.3f} s, modeled "
+              f"{e['modeled_s']:.3f} s, model efficiency "
+              f"{'none' if eff is None else f'{eff:.3f}'}, {e['nbytes']:,} bytes, HBM "
+              f"roofline fraction {'none' if frac is None else f'{frac:.4f}'}")
+    print(f"serving stage report: bottleneck {report['bottleneck']}, measured total "
+          f"{report['measured_total_s']:.3f} s")
     print("SERVING " + json.dumps(dict(
         wall_s=wall, groups_by_b=groups, launches=launches, exec_runs=ran,
         races={race_label(k): v for (_, k), v in races.items()},
@@ -1194,59 +1243,104 @@ def k4_compare(q, k, v, **kw) -> float:
     return err
 
 
-def llm_path(dev):
-    """Gemma-2 9B at full width and depth: random bf16 weights drawn on the
-    card, a batch of 2 random prompts of 8,000 tokens, prefill, then 64
-    greedy decode steps through `launch.serve.serve`. A first, cold run
-    (the kernels' first launches, cuBLAS's first calls at these shapes)
-    goes before the run whose times and launch counts are kept."""
+def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
+    """One LLM at full width and depth: random bf16 weights drawn on the
+    card (``path_inputs(dev)``), a batch of random prompts, prefill, then
+    ``n_decode`` greedy decode steps through `launch.serve.serve`. A first,
+    cold run (the kernels' first launches, cuBLAS's first calls at these
+    shapes) goes before the run whose times and launch counts are kept:
+    K3 and K4 are counted from 0 just before it and read just after. K3
+    runs twice a block (four times with post-norms) and once more at the
+    end, per prefill and per decode step; K4 once a layer in the prefill,
+    on its bf16 route, and never in decode."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, params, prompt = main_path_inputs(dev)
+    cfg, params, prompt = path_inputs(dev)
     torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
     n_params = sum(l.numel() for l in tree.leaves(params))
     check(n_params == build_model(cfg).num_params(), "parameter count")
-    print(f"LLM path: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+    batch, prompt_len = prompt.shape
+    moe = (f", {cfg.num_experts} experts top-{cfg.experts_per_token} + "
+           f"{cfg.num_shared_experts} shared of d_ff {cfg.expert_d_ff}, capacity "
+           f"{cfg.capacity_factor}" if cfg.num_experts else "")
+    print(f"{label} path: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
           f"window {cfg.window_size}, softcaps {cfg.attn_logit_softcap}/"
-          f"{cfg.final_logit_softcap}), {n_params:,} params in {cfg.param_dtype}, "
-          f"drawn on the card in {time.perf_counter() - t0:.1f} s; batch {MAIN_BATCH}, "
-          f"prompts of {MAIN_PROMPT} tokens, {MAIN_DECODE} decode steps")
-    cold = serve(cfg, params, prompt, MAIN_DECODE, dev)
-    check(cold["finite"], "every logit of the cold run finite")
+          f"{cfg.final_logit_softcap}, {cfg.mlp_act}{moe}), {n_params:,} params in "
+          f"{cfg.param_dtype}, drawn on the card in {draw_s:.1f} s "
+          f"({torch.cuda.memory_allocated():,} bytes allocated); batch {batch}, "
+          f"prompts of {prompt_len} tokens, {n_decode} decode steps")
+    cold = serve(cfg, params, prompt, n_decode, dev)
+    check(cold["finite"], f"{label}: every logit of the cold run finite")
     norm_ops.launches = 0
     attn_ops.reset_launches()
-    r = serve(cfg, params, prompt, MAIN_DECODE, dev)
+    r = serve(cfg, params, prompt, n_decode, dev)
     launches = {"rms_norm": norm_ops.launches, "flash_attention": attn_ops.launches,
                 "flash_attention_by_route": dict(attn_ops.launches_by_route)}
     peak = torch.cuda.max_memory_allocated()
+    capacity = torch.cuda.get_device_properties(dev).total_memory
     toks = r["tokens"]
-    print(f"LLM prefill {r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_token']:.3f} "
-          f"ms per token (CUDA events; the cold first run: {cold['prefill_ms']:.1f} ms, "
-          f"{cold['decode_ms_per_token']:.3f} ms); peak memory {peak / 2**30:.2f} GiB "
-          f"({peak:,} bytes); all logits finite: {r['finite']}")
-    print(f"LLM launches: prefill {r['launches']['prefill']}, decode "
-          f"{r['launches']['decode']} over {MAIN_DECODE} steps; total {launches} "
+    print(f"{label} prefill {r['prefill_ms']:.1f} ms, decode "
+          f"{r['decode_ms_per_token']:.3f} ms per token (CUDA events; the cold first "
+          f"run: {cold['prefill_ms']:.1f} ms, {cold['decode_ms_per_token']:.3f} ms); "
+          f"peak memory {peak / 2**30:.2f} GiB ({peak:,} bytes of the card's "
+          f"{capacity:,}); all logits finite: {r['finite']}")
+    print(f"{label} launches: prefill {r['launches']['prefill']}, decode "
+          f"{r['launches']['decode']} over {n_decode} steps; total {launches} "
           f"(K4 by route: {launches['flash_attention_by_route']})")
-    print(f"LLM first 16 generated tokens of row 0: {toks[0, :16].tolist()}")
-    n_norms = 4 * cfg.num_layers + 1
-    check(r["finite"], "every logit finite")
-    check(torch.equal(toks, cold["tokens"]), "the cold and the timed run's tokens agree")
-    check(tuple(toks.shape) == (MAIN_BATCH, MAIN_DECODE + 1), "generated tokens' shape")
-    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "tokens in the vocabulary")
+    print(f"{label} first 16 generated tokens of row 0: {toks[0, :16].tolist()}")
+    n_norms = (4 if cfg.post_norm else 2) * cfg.num_layers + 1
+    check(peak < capacity, f"{label}: peak memory under the card's")
+    check(r["finite"], f"{label}: every logit finite")
+    check(torch.equal(toks, cold["tokens"]),
+          f"{label}: the cold and the timed run's tokens agree")
+    check(tuple(toks.shape) == (batch, n_decode + 1), f"{label}: generated tokens' shape")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{label}: tokens in the vocabulary")
     check(r["launches"]["prefill"] == {"rms_norm": n_norms,
                                        "flash_attention": cfg.num_layers},
-          f"prefill launches {r['launches']['prefill']}")
-    check(r["launches"]["decode"] == {"rms_norm": n_norms * MAIN_DECODE,
+          f"{label}: prefill launches {r['launches']['prefill']}")
+    check(r["launches"]["decode"] == {"rms_norm": n_norms * n_decode,
                                       "flash_attention": 0},
-          f"decode launches {r['launches']['decode']}")
-    check(launches["rms_norm"] == n_norms * (MAIN_DECODE + 1)
-          and launches["flash_attention"] == cfg.num_layers, "LLM path launches")
+          f"{label}: decode launches {r['launches']['decode']}")
+    check(launches["rms_norm"] == n_norms * (n_decode + 1)
+          and launches["flash_attention"] == cfg.num_layers, f"{label}: path launches")
     check(launches["flash_attention_by_route"] == {"bf16_wgmma": cfg.num_layers,
                                                    "f32_cuda_cores": 0},
-          f"K4 routes {launches['flash_attention_by_route']}")
+          f"{label}: K4 routes {launches['flash_attention_by_route']}")
     return cfg, params, prompt, r, cold, launches, peak
+
+
+def analytic_shares(cfg, r, batch: int, prompt_len: int, n_decode: int, label: str):
+    """The run's prefill and decode times against `roofline.analytic`'s
+    FLOPs and bytes at the card's data-sheet peaks (`launch/mesh.py`):
+    prefill's model FLOPs over time x peak (MFU) and its bound (the larger
+    of FLOPs / peak and bytes / HBM rate) over its time; a decode step's
+    bytes over its time x HBM rate, against the cache of prompt_len +
+    n_decode positions."""
+    pre = analytic_cost(cfg, ShapeSpec("prefill", prompt_len, batch))
+    dec = analytic_cost(cfg, ShapeSpec("decode", prompt_len + n_decode, batch))
+    t_pre, t_dec = r["prefill_ms"] / 1e3, r["decode_ms_per_token"] / 1e3
+    bound_pre = roofline_terms(pre["flops"], pre["bytes"], 0.0, 1)
+    bound_dec = roofline_terms(dec["flops"], dec["bytes"], 0.0, 1)
+    out = dict(prefill_flops=pre["flops"], prefill_model_flops=pre["model_flops"],
+               prefill_bytes=pre["bytes"], prefill_bound_ms=1e3 * bound_pre["step_time_lb_s"],
+               prefill_bound_by=bound_pre["bottleneck"],
+               prefill_mfu=pre["model_flops"] / (t_pre * PEAK_FLOPS_BF16),
+               prefill_bound_share=bound_pre["step_time_lb_s"] / t_pre,
+               decode_bytes=dec["bytes"], decode_bound_ms=1e3 * bound_dec["step_time_lb_s"],
+               decode_bound_by=bound_dec["bottleneck"],
+               decode_bw_share=dec["bytes"] / (t_dec * HBM_BW))
+    print(f"{label} shares of the analytic bound ({cfg.name}; {PEAK_FLOPS_BF16 / 1e12:.0f} "
+          f"TFLOP/s bf16, {HBM_BW / 1e12} TB/s): prefill {pre['flops']:.4e} FLOPs "
+          f"({pre['model_flops']:.4e} model), {pre['bytes']:.4e} bytes, bound "
+          f"{out['prefill_bound_ms']:.2f} ms by {out['prefill_bound_by']}; MFU "
+          f"{out['prefill_mfu']:.3f}, bound/time {out['prefill_bound_share']:.3f}. Decode "
+          f"{dec['bytes']:.4e} bytes a step, bound {out['decode_bound_ms']:.3f} ms by "
+          f"{out['decode_bound_by']}; bytes/(time x HBM rate) {out['decode_bw_share']:.3f}")
+    return out
 
 
 def llm_layer_inputs(cfg, params, prompt):
@@ -1260,7 +1354,7 @@ def llm_layer_inputs(cfg, params, prompt):
     local, glob = gp["b0"], gp["b1"]
     qkv_local = _proj_qkv(cfg, local["attn"], apply_norm(cfg, x, local["ln1"]),
                           positions=positions)
-    x1, _ = tfm.block_apply(cfg, cfg.pattern[0], local, x, positions=positions)
+    x1, _, _ = tfm.block_apply(cfg, cfg.pattern[0], local, x, positions=positions)
     qkv_global = _proj_qkv(cfg, glob["attn"], apply_norm(cfg, x1, glob["ln1"]),
                            positions=positions)
     return (x, local["ln1"]), qkv_local, qkv_global
@@ -1401,6 +1495,149 @@ def k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops):
                 transcendental_ms=sfu_ms, tflops=tflops, local_tflops=local_tflops)
 
 
+def moe_layer_inputs(cfg, params, prompt):
+    """The MoE run's own data for K3 and K4, recomputed from the prompt:
+    the input of layer 0's first norm and layer 0's q, k, v."""
+    B, S = prompt.shape
+    positions = torch.arange(S, device=prompt.device).expand(B, S)
+    x = embed_apply(cfg, params["embed"], prompt, positions)
+    layer0 = tfm.group_params(params, 0)["b0"]
+    qkv = _proj_qkv(cfg, layer0["attn"], apply_norm(cfg, x, layer0["ln1"]),
+                    positions=positions)
+    return (x, layer0["ln1"]), qkv
+
+
+def k4_compare_rows(q, k, v, **kw) -> float:
+    """K4 against its plain version one batch row at a time (a row's
+    scores alone are H x S x S float32)."""
+    got = attn_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()), "K4 output finite")
+    err = 0.0
+    for b in range(q.shape[0]):
+        want = attn_ref.flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)
+        check(got.dtype == want.dtype and got[b:b + 1].shape == want.shape,
+              "K4 dtype/shape")
+        check(within_bf16_ulp(got[b:b + 1], want), "K4 differs from its plain "
+              "version by more than one bf16 ulp")
+        err = max(err, float((got[b:b + 1].float() - want.float()).abs().max()))
+        del want
+        torch.cuda.empty_cache()
+    return err
+
+
+def causal_attention_f64(q, k, v):
+    """The plain version's function (causal, no window or softcap) in
+    float64."""
+    S, hd = q.shape[1], q.shape[-1]
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.double(), k.double()) * hd**-0.5
+    s.masked_fill_(~torch.ones(S, S, dtype=torch.bool, device=q.device).tril(), -1e300)
+    p = torch.softmax(s, dim=-1)
+    del s
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v.double())
+
+
+def k4_against_float64(q, k, v) -> dict:
+    """K4 and its plain version each against the same attention in float64,
+    one batch row at a time: how many outputs each puts more than one bf16
+    ulp (+ 1e-5) from the float64 value, and its largest error; and how
+    many of K4's outputs lie more than one ulp from the plain version's.
+    Where the softmax is nearly a hard max and outputs cancel, the two
+    float32 evaluations differ from float64, and from each other, by far
+    more than one bf16 ulp; K4 must then miss the float64 value no more
+    often than its plain version does."""
+    got = attn_ops.flash_attention(q, k, v, causal=True, window=0, softcap=0.0)
+    out = dict(n=got.numel(), kernel_beyond_plain=0, kernel_beyond_f64=0,
+               plain_beyond_f64=0, kernel_max_err_f64=0.0, plain_max_err_f64=0.0)
+    for b in range(q.shape[0]):
+        sl = slice(b, b + 1)
+        want = attn_ref.flash_attention_ref(q[sl], k[sl], v[sl], causal=True)
+        truth = causal_attention_f64(q[sl], k[sl], v[sl])
+        g, w = got[sl].double(), want.double()
+        ulp_t = torch.exp2(torch.floor(torch.log2(truth.abs().clamp_min(1e-30))) - 7)
+        ulp_w = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+        out["kernel_beyond_plain"] += int(((g - w).abs() > ulp_w + 1e-5).sum())
+        out["kernel_beyond_f64"] += int(((g - truth).abs() > ulp_t + 1e-5).sum())
+        out["plain_beyond_f64"] += int(((w - truth).abs() > ulp_t + 1e-5).sum())
+        out["kernel_max_err_f64"] = max(out["kernel_max_err_f64"],
+                                        float((g - truth).abs().max()))
+        out["plain_max_err_f64"] = max(out["plain_max_err_f64"],
+                                       float((w - truth).abs().max()))
+        del want, truth, g, w, ulp_t, ulp_w
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
+    """K3 and K4 on the MoE run's layer-0 inputs: K3 at the prefill's and a
+    decode step's shape, K4 at (2, 8000, 16, 1, 128) without softcap or
+    window, each within one bf16 ulp of its plain version; then their
+    times beside their bounds, the plain versions and the PyTorch calls
+    (K4's: scaled_dot_product_attention(is_causal=True), which computes the
+    same function at softcap 0)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    x, w0 = norm_in
+    w = (torch.randn(w0.shape, generator=g, device=dev) * 0.1).to(w0.dtype)
+    xd = x[:, -1:].contiguous()
+    k3_err = max(k3_compare(x, w0), k3_compare(x, w), k3_compare(xd, w))
+    check(norm_ops.variant(x, w) == "warp_per_row" and norm_ops.variant(xd, w) == "split_row",
+          "MoE path: K3 takes a warp per row in prefill and a split row in decode")
+    print(f"MoE K3 rms_norm within 1 bf16 ulp of its plain version on the run's layer-0 "
+          f"input {tuple(x.shape)} (zero-init and random weight) and its last position; "
+          f"max abs err {k3_err:.3e}")
+    k3_pre = k3_time(x, w, bw)
+    k3_dec = k3_time(xd, w, bw, n=200)
+
+    q, k, v = qkv
+    kw = dict(causal=True, window=cfg.window_size, softcap=cfg.attn_logit_softcap)
+    check(kw == dict(causal=True, window=0, softcap=0.0), f"MoE path: K4 options {kw}")
+    B, S, KV, G, hd = q.shape
+    H = KV * G
+    qs, ks, vs = (torch.randn(t.shape, generator=g, device=dev).to(t.dtype) for t in qkv)
+    k4_err = k4_compare_rows(qs, ks, vs, **kw)
+    del qs, ks, vs
+    print(f"MoE K4 flash_attention within 1 bf16 ulp of its plain version at the run's "
+          f"shape {tuple(q.shape)} on N(0, 1) inputs (one batch row at a time): max abs "
+          f"err {k4_err:.3e}")
+    f64 = k4_against_float64(q, k, v)
+    print(f"MoE K4 on the run's layer-0 q, k, v (|q| up to {float(q.abs().max()):.1f}, |k| "
+          f"{float(k.abs().max()):.1f}, |v| {float(v.abs().max()):.1f}: the init's fan-in "
+          f"of wq is its G axis, 1 here) against attention in float64: outputs more than "
+          f"1 bf16 ulp (+1e-5) off: kernel {f64['kernel_beyond_f64']}, plain "
+          f"{f64['plain_beyond_f64']} of {f64['n']:,}; largest error kernel "
+          f"{f64['kernel_max_err_f64']:.3e}, plain {f64['plain_max_err_f64']:.3e}; kernel "
+          f"more than 1 ulp from plain: {f64['kernel_beyond_plain']}")
+    check(f64["kernel_beyond_f64"] <= f64["plain_beyond_f64"],
+          "MoE path: K4 misses the float64 attention more often than its plain version")
+    ms = device_ms(lambda: attn_ops.flash_attention(q, k, v, **kw), n=10, reps=5)
+    plain_ms = device_ms(lambda: attn_ref.flash_attention_ref(q, k, v, **kw), n=1, reps=3)
+    torch.cuda.empty_cache()
+    q4 = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd).contiguous()
+    k4, v4 = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ours = attn_ops.flash_attention(q, k, v, **kw)
+    lib = sdpa(q4, k4, v4, is_causal=True).reshape(B, KV, G, S, hd).permute(0, 3, 1, 2, 4)
+    sdpa_err = float((ours.float() - lib.float()).abs().max())
+    check(sdpa_err <= 1e-2 * float(ours.float().abs().max()),
+          f"MoE K4 vs scaled_dot_product_attention: {sdpa_err}")
+    library_ms = device_ms(lambda: sdpa(q4, k4, v4, is_causal=True), n=10, reps=5)
+    del ours, lib, q4, k4, v4
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()  # q, o; k, v
+    flops = 4 * hd * B * H * live_pairs(S, 0)
+    bound_ms = 1e3 * max(nbytes / bw, flops / bf16_flops)
+    sfu_ms = 1e3 * B * H * live_pairs(S, 0) / SFU_PER_S  # the softmax's exp
+    tflops = flops / ms / 1e9
+    print(f"MoE K4 flash_attention {tuple(q.shape)} bf16, no softcap or window: kernel "
+          f"{ms:.3f} ms, {tflops:.1f} TFLOP/s, {bound_ms / ms:.1%} of its bound "
+          f"{bound_ms:.4f} ms ({flops / 1e12:.4f} TFLOP at {bf16_flops / 1e12:.0f} "
+          f"TFLOP/s bf16; one exp per live score {sfu_ms:.4f} ms); plain {plain_ms:.3f} "
+          f"ms; scaled_dot_product_attention(is_causal=True) {library_ms:.3f} ms "
+          f"(kernel/SDPA {ms / library_ms:.2f}x; max abs diff {sdpa_err:.3e})")
+    return dict(k3_err=k3_err, k3=k3_pre, k3_decode=k3_dec, k4_err=k4_err, k4_f64=f64, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                transcendental_ms=sfu_ms, tflops=tflops, shape=list(q.shape))
+
+
 T_START = time.perf_counter()
 
 
@@ -1462,14 +1699,38 @@ def main() -> None:
     # phase's graphs and their memory pools go first
     batched.cache_clear()
     torch.cuda.empty_cache()
-    cfg, params, prompt, llm, llm_cold, llm_launches, peak = llm_path(dev)
+    cfg, params, prompt, llm, llm_cold, llm_launches, peak = llm_path(
+        dev, main_path_inputs, MAIN_DECODE)
+    held = torch.cuda.memory_allocated()
     norm_in, qkv_local, qkv_global = llm_layer_inputs(cfg, params, prompt)
     del params
     torch.cuda.empty_cache()
     k3 = k3_phase(dev, cfg, norm_in, bw)
     k4 = k4_phase(dev, cfg, qkv_local, qkv_global, bw, bf16_flops)
+    llm_shares = analytic_shares(cfg, llm, MAIN_BATCH, MAIN_PROMPT, MAIN_DECODE, "LLM")
 
-    # 8. kernels line
+    # 8. the MoE serving path, once Gemma-2's weights and layer inputs are
+    # gone (both models' weights and caches would not fit the card at once)
+    t_moe = time.perf_counter()
+    del norm_in, qkv_local, qkv_global, prompt
+    torch.cuda.empty_cache()
+    freed = torch.cuda.memory_allocated()
+    gemma_bytes = build_model(cfg).num_params() * cfg.pdtype.itemsize
+    print(f"MoE path: device memory allocated {held:,} bytes with {cfg.name}'s weights, "
+          f"{freed:,} after freeing them ({gemma_bytes:,} bytes of weights)")
+    check(held - freed >= gemma_bytes, f"{cfg.name}'s weights freed before the MoE path")
+    mcfg, mparams, mprompt, moe, moe_cold, moe_launches, moe_peak = llm_path(
+        dev, moe_path_inputs, MOE_DECODE, "MoE")
+    moe_norm_in, moe_qkv = moe_layer_inputs(mcfg, mparams, mprompt)
+    del mparams, mprompt
+    torch.cuda.empty_cache()
+    moe_shares = analytic_shares(mcfg, moe, MOE_BATCH, MOE_PROMPT, MOE_DECODE, "MoE")
+    mk = moe_kernels_phase(dev, mcfg, moe_norm_in, moe_qkv, bw, bf16_flops)
+    del moe_norm_in, moe_qkv
+    torch.cuda.empty_cache()
+    moe_s = time.perf_counter() - t_moe
+
+    # 9. kernels line
     kernels = [
         dict(name="masked_adam_3d", route="cuda",
              source="src/repro_torch/csrc/masked_adam.cu",
@@ -1503,20 +1764,25 @@ def main() -> None:
              b1_library_ms=k2_b1["library_ms"], b1_bound_ms=k2_b1["bound_ms"]),
         dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:25",
-             launches=llm_launches["rms_norm"], max_abs_err=k3["err"], ms=k3["ms"],
+             launches=llm_launches["rms_norm"], moe_launches=moe_launches["rms_norm"],
+             max_abs_err=max(k3["err"], mk["k3_err"]), ms=k3["ms"],
              call_ms=k3["call_ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by="bytes", library_ms=k3["library_ms"],
              library_call="torch.nn.functional.rms_norm(x, (d,), weight=1+w, eps=1e-6)",
              copy_ms=k3["copy_ms"],
              decode_ms=k3["decode_ms"], decode_call_ms=k3["decode_call_ms"],
              decode_plain_ms=k3["decode_plain_ms"], decode_bound_ms=k3["decode_bound_ms"],
-             decode_library_ms=k3["decode_library_ms"]),
+             decode_library_ms=k3["decode_library_ms"],
+             **{f"moe_{k}": v for k, v in mk["k3"].items()},
+             **{f"moe_decode_{k}": v for k, v in mk["k3_decode"].items()}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:89",
              launches=llm_launches["flash_attention"],
              launches_by_route=llm_launches["flash_attention_by_route"],
-             max_abs_err=k4["err"],
+             moe_launches=moe_launches["flash_attention"],
+             moe_launches_by_route=moe_launches["flash_attention_by_route"],
+             max_abs_err=max(k4["err"], mk["k4_err"]),
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by="operations", library_ms=k4["library_ms"],
              library_call="scaled_dot_product_attention(is_causal=True, "
@@ -1526,6 +1792,10 @@ def main() -> None:
              transcendental_ms=k4["transcendental_ms"], tflops=k4["tflops"],
              local_tflops=k4["local_tflops"], bound_share=k4["bound_ms"] / k4["ms"],
              local_bound_share=k4["local_bound_ms"] / k4["local_ms"],
+             hd128_shape=mk["shape"], hd128_ms=mk["ms"], hd128_plain_ms=mk["plain_ms"],
+             hd128_bound_ms=mk["bound_ms"], hd128_library_ms=mk["library_ms"],
+             hd128_transcendental_ms=mk["transcendental_ms"], hd128_tflops=mk["tflops"],
+             hd128_against_float64=mk["k4_f64"],
              sass=sass),
     ]
     print(f"AMS summary: eager iteration busy share {trace['busy_share']:.3f} "
@@ -1545,6 +1815,12 @@ def main() -> None:
           f"on an H100 80GB HBM3 at 700 W: 678.6-686.4; cold "
           f"{llm_cold['prefill_ms']:.1f}), decode {llm['decode_ms_per_token']:.3f} "
           f"ms/token (cold {llm_cold['decode_ms_per_token']:.3f}), peak {peak:,} bytes")
+    print(f"MoE summary: {mcfg.name} prefill {moe['prefill_ms']:.1f} ms (cold "
+          f"{moe_cold['prefill_ms']:.1f}), decode {moe['decode_ms_per_token']:.3f} ms/token "
+          f"(cold {moe_cold['decode_ms_per_token']:.3f}), peak {moe_peak:,} bytes; K4 at "
+          f"{tuple(mk['shape'])} {mk['ms']:.3f} ms (SDPA {mk['library_ms']:.3f}, bound "
+          f"{mk['bound_ms']:.4f}); the MoE phase took {moe_s:.1f} s")
+    print("ANALYTIC_SHARES " + json.dumps({cfg.name: llm_shares, mcfg.name: moe_shares}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

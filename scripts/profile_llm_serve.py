@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of the port's LLM serving path goes, on one CUDA card.
+"""Where the time of the port's LLM serving paths goes, on one CUDA card.
 
     PYTHONPATH=src python3 scripts/profile_llm_serve.py
 
-The main path of `repro_torch.launch.serve` (`main_path_inputs`,
-`MAIN_DECODE`): Gemma-2 9B at full width and depth, random bf16 weights
-drawn on the card from seed 0, a batch of 2 random prompts of 8,000
-tokens, one prefill into a cache of 8,064 positions, then 64 greedy
-decode steps, through `make_prefill_step` and `make_serve_step`. The
-prefill and the decode steps are each run once untraced as a warm-up and
-once more untraced for their wall times, then traced with
-`torch.profiler` (CUDA activity only, which keeps the tracer's own host
-work small). It prints, per traced phase
-and per decode step: the wall time (the tracer's host overhead
-included), the device time summed over kernels, their ratio (the
-device's busy share; kernels do not overlap on one stream), the number
-of kernel launches, the device time grouped into the port's own kernels,
-matrix products (cuBLAS), copies and casts, and the rest, and the
-kernels with the most device time. It needs a card and exits non-zero
-without one.
+The two full-size paths of `repro_torch.launch.serve`, one after the
+other: the main path (`main_path_inputs`, `MAIN_DECODE`: Gemma-2 9B) and
+the MoE path (`moe_path_inputs`, `MOE_DECODE`: Moonlight-16B-A3B), each
+at full width and depth with random bf16 weights drawn on the card from
+seed 0, a batch of 2 random prompts of 8,000 tokens, one prefill into a
+cache of 8,064 positions, then 64 greedy decode steps, through
+`make_prefill_step` and `make_serve_step`. A path's weights are freed
+before the next is drawn. The prefill and the decode steps are each run
+once untraced as a warm-up and once more untraced for their wall times,
+then traced with `torch.profiler` (CUDA activity only, which keeps the
+tracer's own host work small). It prints, per traced phase and per
+decode step: the wall time (the tracer's host overhead included), the
+device time summed over kernels, their ratio (the device's busy share;
+kernels do not overlap on one stream), the number of kernel launches,
+the device time grouped into the port's own kernels, matrix products
+(cuBLAS), copies and casts, indexing (the MoE dispatch's gathers and
+scatters), and the rest, and the kernels with the most device time. It
+needs a card and exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -33,11 +35,12 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from repro_torch.launch.serve import MAIN_DECODE, main_path_inputs  # noqa: E402
+from repro_torch.launch.serve import (MAIN_DECODE, MOE_DECODE, main_path_inputs,  # noqa: E402
+                                      moe_path_inputs)
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models.registry import build  # noqa: E402
 
-TOP = 12  # kernels listed per phase
+TOP = 15  # kernels listed per phase
 
 
 def kernel_times(prof):
@@ -60,6 +63,8 @@ def group(name: str) -> str:
         return "matrix products"
     if "direct_copy" in name:
         return "copies and casts"
+    if any(k in low for k in ("index", "scatter", "gather")):
+        return "indexing"
     return "other"
 
 
@@ -85,25 +90,20 @@ def report(label: str, prof, wall_ms: float, steps: int = 1):
         print(f"    {t / 1e3 / steps:10.3f} ms  {c / steps:8.1f}x  {name[:110]}")
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("profile_llm_serve: CUDA is not available; this needs one GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    print(smi.strip().splitlines()[0])
+def profile_path(path_inputs, n_decode: int):
     dev = torch.device("cuda", 0)
-    cfg, params, prompt = main_path_inputs(dev)
+    cfg, params, prompt = path_inputs(dev)
     model = build(cfg)
     B, S = prompt.shape
-    prefill_step = make_prefill_step(model, S + MAIN_DECODE)
+    prefill_step = make_prefill_step(model, S + n_decode)
     serve_step = make_serve_step(model)
+    print(f"{cfg.name}: {model.num_params():,} params in {cfg.param_dtype}")
 
     def prefill():
         return prefill_step(params, {"tokens": prompt})
 
     def decode(caches, tok):
-        for i in range(MAIN_DECODE):
+        for i in range(n_decode):
             tok, caches, _ = serve_step(params, caches, {"tokens": tok, "pos": S + i})
         return tok
 
@@ -119,7 +119,7 @@ def main():
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         _, dec_ms = timed(decode, caches, tok)
         del logits, caches
-        print(f"{run}: prefill {pre_ms:.1f} ms, decode {dec_ms / MAIN_DECODE:.2f} "
+        print(f"{run}: prefill {pre_ms:.1f} ms, decode {dec_ms / n_decode:.2f} "
               f"ms per step (host clock around synchronised calls)")
     acts = [ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -128,8 +128,20 @@ def main():
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     with profile(activities=acts) as prof:
         _, wall = timed(decode, caches, tok)
-    report(f"decode ({MAIN_DECODE} steps, cache {S + MAIN_DECODE})", prof, wall,
-           MAIN_DECODE)
+    report(f"decode ({n_decode} steps, cache {S + n_decode})", prof, wall, n_decode)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("profile_llm_serve: CUDA is not available; this needs one GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    print(smi.strip().splitlines()[0])
+    for path_inputs, n_decode in ((main_path_inputs, MAIN_DECODE),
+                                  (moe_path_inputs, MOE_DECODE)):
+        profile_path(path_inputs, n_decode)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -46,12 +46,21 @@ Ported (the paper's streaming schemes and the serving runtime):
   hooks in ``core/batched.py``, ``core/selection.py`` and
   ``core/delta.py``, and ``sim/multiclient.py``.
 
-Not ported yet: the fused path's execution shapes (the flatten copies
-around the masked-Adam kernel, CUDA graphs for the K loop and the race
-between them), sharded execution on several cards, the roofline model,
-and the LLM zoo's MoE, Mamba2, RWKV6, cross-attention and encoder modules
-with their configs, ``data/tokens.py``, ``checkpoint/`` and the dry-run
-and training launchers.
+Ported (the fused path's execution shape): the flat layout of the
+masked-Adam K loop, the K loop as one CUDA graph or an eager loop, and
+the race between them (``core/batched.py``).
+
+Ported (the LLM zoo's MoE serving path and the roofline arithmetic):
+``models/moe.py`` with the ``moe``/``moe_local`` block kinds, the SwiGLU
+MLP, the configs of Moonlight-16B-A3B, Mixtral 8x22B, Llama-4 Maverick
+and Llama 3 405B; ``roofline/analytic.py``, ``roofline/analysis.py`` (its
+arithmetic) and ``launch/mesh.py`` (an H100's constants).
+
+Not ported yet: sharded execution on several cards (with the mesh
+builders), the LLM zoo's Mamba2, RWKV6, cross-attention and encoder
+modules with their configs, ``data/tokens.py``, ``checkpoint/``, the
+HLO readers of ``roofline/analysis.py`` and the dry-run and training
+launchers.
 
 Entry points take ``device="cuda"`` by default and raise when there is
 no card; the CPU runs only when the caller passes ``device="cpu"``.

@@ -4,9 +4,11 @@ package's `configs/__init__.py`.
 Each ported architecture has a module exporting ``full()`` (the exact
 published config) and ``smoke()`` (a reduced same-family variant used by
 CPU tests), copied from the JAX package. ``ALIASES`` keeps the JAX
-package's external spellings. Only the dense architectures are ported;
-the others need modules the port does not have yet (ROADMAP §1 item 7),
-and asking for one raises ``NotImplementedError``.
+package's external spellings. The dense and MoE architectures are ported
+(Llama 3 405B, Mixtral 8x22B and Llama-4 Maverick do not fit one card at
+full size; their smoke configs run on the CPU); the others need modules
+the port does not have yet (ROADMAP §1 item 7), and asking for one raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ from repro_torch.models.common import ModelConfig
 ARCH_IDS = (
     "gemma2_9b",
     "gemma_2b",
+    "moonshot_v1_16b_a3b",
+    "mixtral_8x22b",
+    "llama3_405b",
+    "llama4_maverick_400b_a17b",
 )
 
 # external spelling (--arch flag) -> module name
@@ -40,7 +46,7 @@ def _module(name: str):
     if name not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ROADMAP §1 item 7: "
-            f"MoE, Mamba2, RWKV6, cross-attention and the encoder); ported: "
+            f"Mamba2, RWKV6, cross-attention and the encoder); ported: "
             f"{', '.join(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -1,2 +1,2 @@
-"""Entry points of the port's LLM serving path (`serve`) and its step
-functions (`steps`)."""
+"""Entry points of the port's LLM serving path (`serve`), its step
+functions (`steps`) and the card's roofline constants (`mesh`)."""

@@ -4,11 +4,12 @@ against the KV cache (the JAX package's `launch/serve.py`).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --batch 2 --prompt-len 16 --tokens 8 --device cpu
 
-runs a smoke config on the CPU; without ``--device`` it runs on the card.
-`serve` is the function behind it. The main path, which `chip_smoke.py`
-drives and `scripts/profile_llm_serve.py` profiles, is defined once here:
-`MAIN_ARCH` at full width and depth, `MAIN_BATCH` prompts of `MAIN_PROMPT`
-tokens and `MAIN_DECODE` decode steps (`main_path_inputs`).
+runs a smoke config on the CPU (``--arch moonshot-v1-16b-a3b`` for the
+MoE one); without ``--device`` it runs on the card. `serve` is the
+function behind it. The two full-size paths, which `chip_smoke.py` drives
+and `scripts/profile_llm_serve.py` profiles, are defined once here: `MAIN_ARCH` (dense) and `MOE_ARCH` at full width and depth, each
+with its batch of prompts and decode steps (`main_path_inputs`,
+`moe_path_inputs`).
 """
 from __future__ import annotations
 
@@ -32,18 +33,37 @@ from repro_torch.models.registry import build
 MAIN_ARCH = "gemma2-9b"
 MAIN_BATCH, MAIN_PROMPT, MAIN_DECODE = 2, 8000, 64
 
+# The MoE path: Moonlight-16B-A3B's published config (48 layers, 64 routed
+# experts top-6 and 2 shared, 28.55B parameters, 57.1 GB in bf16) with
+# random bf16 weights, the same prompts and decode steps as the main path.
+# On one 80 GB card: the weights, a 6.3 GB bf16 KV cache at 2 x 8,064
+# positions and a few hundred MB of MoE dispatch transients a layer.
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_BATCH, MOE_PROMPT, MOE_DECODE = 2, 8000, 64
+
+
+def _path_inputs(arch: str, batch: int, prompt_len: int, device):
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build(cfg).init(gen, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device=dev)
+    return cfg, params, prompt
+
 
 def main_path_inputs(device="cuda"):
     """``(cfg, params, prompt)`` of the main path: `MAIN_ARCH`'s full
     config, its weights drawn on ``device`` from a generator seeded with 0,
     and (MAIN_BATCH, MAIN_PROMPT) random token ids from the same generator."""
-    dev = resolve_device(device)
-    cfg = get_config(MAIN_ARCH)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = build(cfg).init(gen, dev)
-    prompt = torch.randint(0, cfg.vocab_size, (MAIN_BATCH, MAIN_PROMPT),
-                           generator=gen, device=dev)
-    return cfg, params, prompt
+    return _path_inputs(MAIN_ARCH, MAIN_BATCH, MAIN_PROMPT, device)
+
+
+def moe_path_inputs(device="cuda"):
+    """``(cfg, params, prompt)`` of the MoE path: `MOE_ARCH`'s full config,
+    its bf16 weights drawn on ``device`` from a generator seeded with 0,
+    and (MOE_BATCH, MOE_PROMPT) random token ids from the same generator."""
+    return _path_inputs(MOE_ARCH, MOE_BATCH, MOE_PROMPT, device)
 
 
 class _Clock:

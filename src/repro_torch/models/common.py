@@ -12,7 +12,8 @@ hand-written kernels.
 A ``ParamMeta`` tree describes every leaf's shape and initialiser (the
 JAX package's logical sharding axes are left out: nothing here shards);
 ``init_params`` draws real weights from a `torch.Generator`, on the
-generator's own device, so a full-size model is drawn on the card. The
+generator's own device, so a full-size model is drawn on the card (its
+largest leaves one stacked slice at a time, `WHOLE_DRAW_BYTES`). The
 draws cannot match ``jax.random`` bit for bit, so tests that compare the
 two packages carry the JAX package's weights over instead
 (`params_from_numpy`).
@@ -150,6 +151,15 @@ class ParamMeta:
     init_scale: float = 1.0
 
 
+# A leaf whose float32 draw would take more than this many bytes is drawn
+# one slice of its leading (stacked-group) axis at a time, straight into
+# the final tensor: Moonlight-16B-A3B's stacked expert leaves (48, 64,
+# 2048, 1408) would need a 35.4 GB float32 temporary beside their 17.7 GB
+# bf16 result. Gemma-2 9B's largest leaf is 4.3 GB in float32, so every
+# leaf of it is drawn whole.
+WHOLE_DRAW_BYTES = 8 << 30
+
+
 def _leaf_init(meta: ParamMeta, gen: torch.Generator, dtype, device):
     if meta.init == "zeros":
         return torch.zeros(meta.shape, dtype=dtype, device=device)
@@ -168,9 +178,16 @@ def _leaf_init(meta: ParamMeta, gen: torch.Generator, dtype, device):
         raise ValueError(f"unknown init {meta.init}")
     # drawn in float32 on the generator's device, so a seed gives the same
     # weights wherever they end up
-    x = torch.randn(meta.shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return x.mul_(scale).to(device=device, dtype=dtype)
+    if 4 * math.prod(meta.shape) <= WHOLE_DRAW_BYTES or len(meta.shape) < 2:
+        x = torch.randn(meta.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return x.mul_(scale).to(device=device, dtype=dtype)
+    out = torch.empty(meta.shape, dtype=dtype, device=device)
+    for i in range(meta.shape[0]):
+        x = torch.randn(meta.shape[1:], generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        out[i].copy_(x.mul_(scale))
+    return out
 
 
 def init_params(metas, gen: torch.Generator, dtype, device) -> dict:

@@ -20,13 +20,13 @@ from repro_torch.models.common import ModelConfig, ParamMeta, dense_meta
 
 
 def _check_ported(cfg: ModelConfig):
-    """The ported configs use RoPE and GeGLU; learned or sinusoidal
-    positions and the SwiGLU and plain-gelu MLPs wait for the architectures
-    that use them."""
+    """The ported configs use RoPE and the gated MLPs (GeGLU, SwiGLU);
+    learned or sinusoidal positions and the plain-gelu MLP wait for the
+    architectures that use them (cross-attention and the encoder)."""
     if cfg.pos not in ("rope", "none"):
         raise NotImplementedError(
             f"pos={cfg.pos!r} is not ported yet (ROADMAP §1 item 7)")
-    if cfg.mlp_act != "geglu":
+    if cfg.mlp_act not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp_act={cfg.mlp_act!r} is not ported yet (ROADMAP §1 item 7)")
 
@@ -94,10 +94,16 @@ def mlp_metas(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     return {"wg": dense_meta(d, ff), "wu": dense_meta(d, ff), "wd": dense_meta(ff, d)}
 
 
+def glu_act(cfg: ModelConfig, g):
+    """The gate's activation: SiLU for SwiGLU, tanh-approximated GELU for
+    GeGLU."""
+    return F.silu(g) if cfg.mlp_act == "swiglu" else F.gelu(g, approximate="tanh")
+
+
 def mlp_apply(cfg: ModelConfig, p: dict, x):
-    """GeGLU, the one MLP of the ported configs."""
+    """The gated MLP of the ported configs: act(x @ wg) * (x @ wu) @ wd."""
     _check_ported(cfg)
-    return (F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])) @ p["wd"]
+    return (glu_act(cfg, x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
 
 
 # ---------------------------------------------------------------------------

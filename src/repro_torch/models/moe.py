@@ -1,0 +1,120 @@
+"""Mixture-of-Experts layer: top-k router and capacity-based dispatch (the
+JAX package's `models/moe.py`).
+
+Tokens go into an (E, cap, d) buffer at positions given by a cumulative
+count per expert, in token-major, k-minor order (O(T*E) ints, no
+(T, E, cap) one-hot). A slot whose position reaches ``cap`` is dropped: it
+contributes nothing, and its token keeps only its other experts (and the
+shared ones). The buffer is written by an index assignment of the kept
+slots alone, so the dispatch is deterministic on the card (each kept
+(expert, position) pair is written once; nothing accumulates). The three
+expert products are batched matrix products over the experts, which the
+JAX package also computes outside any Pallas kernel. The JAX package's
+`_act` is `layers.glu_act`.
+
+``moe_ep_axis`` and ``moe_cap_axes`` pin the JAX package's expert-parallel
+layout; nothing here reads them (one card, no sharding), as nothing reads
+``remat``.
+
+`moe_ref` is the dense oracle (every expert on every token, no drops).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import ModelConfig, ParamMeta
+from repro_torch.models.layers import glu_act, mlp_apply, mlp_metas
+
+
+def moe_metas(cfg: ModelConfig) -> dict:
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.expert_d_ff
+    m = {
+        "router": ParamMeta((d, E)),
+        "wg": ParamMeta((E, d, ff)),
+        "wu": ParamMeta((E, d, ff)),
+        "wd": ParamMeta((E, ff, d)),
+    }
+    if cfg.num_shared_experts:
+        m["shared"] = mlp_metas(cfg, d_ff=cfg.num_shared_experts * ff)
+    return m
+
+
+def _route(cfg: ModelConfig, p: dict, x_flat):
+    """Returns (weights (T,k) in x's dtype, idx (T,k), aux_loss float32):
+    a float32 softmax over the router's logits, its top k renormalised,
+    and the Switch load-balance loss over each token's first expert."""
+    logits = (x_flat @ p["router"]).to(torch.float32)  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    weights, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    experts = torch.arange(cfg.num_experts, device=x_flat.device)
+    frac_tokens = (idx[:, :1] == experts).to(torch.float32).mean(dim=0)  # primary
+    mean_probs = probs.mean(dim=0)
+    aux = cfg.num_experts * torch.sum(frac_tokens * mean_probs)
+    return weights.to(x_flat.dtype), idx, aux
+
+
+def capacity(cfg: ModelConfig, T: int) -> int:
+    """Buffer rows per expert for T tokens: capacity_factor * T * k / E,
+    at least 1 and at most T."""
+    cap = max(int(cfg.capacity_factor * T * cfg.experts_per_token / cfg.num_experts), 1)
+    return min(cap, T)
+
+
+def dispatch(cfg: ModelConfig, idx):
+    """Each slot's position within its expert and whether it is kept.
+    idx: (T, k) expert ids. Returns (pos_f, keep), both (T*k,), from the
+    cumulative count per expert in token-major, k-minor order. The count
+    runs along the slots as the innermost axis of an (E, T*k) one-hot: a
+    scan over the outer axis of (T*k, E) took 25 ms a layer on an H100 at
+    T*k = 96,000."""
+    T, k = idx.shape
+    idx_f = idx.reshape(T * k)
+    experts = torch.arange(cfg.num_experts, device=idx.device)
+    one_hot = (experts[:, None] == idx_f[None, :]).to(torch.int32)  # (E, T*k)
+    counts = torch.cumsum(one_hot, dim=1, dtype=torch.int32)
+    pos_f = counts.gather(0, idx_f[None, :])[0] - 1
+    return pos_f, pos_f < capacity(cfg, T)
+
+
+def moe_apply(cfg: ModelConfig, p: dict, x):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss float32 scalar)."""
+    B, S, d = x.shape
+    k, E = cfg.experts_per_token, cfg.num_experts
+    T = B * S
+    x_flat = x.reshape(T, d)
+    weights, idx, aux = _route(cfg, p, x_flat)
+    cap = capacity(cfg, T)
+    idx_f, w_f = idx.reshape(T * k), weights.reshape(T * k)
+    pos_f, keep = dispatch(cfg, idx)
+
+    # buffer row e * cap + pos of each kept slot, written once (token-major)
+    kept = keep.nonzero()[:, 0]
+    buffer = torch.zeros((E * cap, d), dtype=x.dtype, device=x.device)
+    buffer.index_copy_(0, idx_f[kept] * cap + pos_f[kept], x_flat.index_select(0, kept // k))
+    buffer = buffer.view(E, cap, d)
+
+    h = glu_act(cfg, torch.bmm(buffer, p["wg"])) * torch.bmm(buffer, p["wu"])
+    h_out = torch.bmm(h, p["wd"]).view(E * cap, d)
+
+    gathered = h_out.index_select(0, idx_f * cap + torch.where(keep, pos_f, 0))  # (T*k, d)
+    gathered = gathered * (w_f * keep.to(w_f.dtype))[:, None]
+    out = gathered.reshape(T, k, d).sum(dim=1)
+    if cfg.num_shared_experts:
+        out = out + mlp_apply(cfg, p["shared"], x_flat)
+    return out.reshape(B, S, d), aux
+
+
+def moe_ref(cfg: ModelConfig, p: dict, x):
+    """Dense oracle: every expert on every token (no capacity drops)."""
+    B, S, d = x.shape
+    x_flat = x.reshape(B * S, d)
+    weights, idx, aux = _route(cfg, p, x_flat)
+    h = glu_act(cfg, torch.einsum("td,edf->tef", x_flat, p["wg"]))
+    h = h * torch.einsum("td,edf->tef", x_flat, p["wu"])
+    all_out = torch.einsum("tef,efd->ted", h, p["wd"])  # (T, E, d)
+    sel = torch.take_along_dim(all_out, idx[..., None], dim=1)  # (T, k, d)
+    out = (sel * weights[..., None]).sum(dim=1)
+    if cfg.num_shared_experts:
+        out = out + mlp_apply(cfg, p["shared"], x_flat)
+    return out.reshape(B, S, d), aux

@@ -1,5 +1,5 @@
 """Model facade: bundles a config with its parameter machinery and step
-functions (the JAX package's `models/registry.py`, dense stacks).
+functions (the JAX package's `models/registry.py`, dense and MoE stacks).
 
 The parameter tree keeps the JAX package's layout and key names (``wq``
 is (d, KV, G, hd), blocks are stacked under ``groups/b{i}``), so
@@ -41,6 +41,8 @@ class Model:
 
     # --- steps ---
     def forward(self, params, tokens):
+        """(logits, aux): the MoE load-balance loss beside the logits, as in
+        the JAX package."""
         return tfm.forward(self.cfg, params, tokens)
 
     def prefill(self, params, tokens, cache_len):

@@ -1,20 +1,23 @@
-"""Generic decoder stack, dense parts (the JAX package's
-`models/transformer.py`).
+"""Generic decoder stack (the JAX package's `models/transformer.py`).
 
 Every architecture is a repeated `pattern` of block kinds. The port runs
 
     attn        full causal self-attention + MLP
     attn_local  sliding-window causal self-attention + MLP
     attn_nc     non-causal self-attention + MLP
+    moe         full causal self-attention + MoE
+    moe_local   sliding-window self-attention + MoE (mixtral)
 
-and raises ``NotImplementedError`` for the others (``moe``, ``moe_local``,
-``xattn``, ``attn_xattn``, ``mamba``, ``rwkv``, the shared attention block
-and the encoder), which wait for ROADMAP §1 item 7.
+and raises ``NotImplementedError`` for the others (``xattn``,
+``attn_xattn``, ``mamba``, ``rwkv``, the shared attention block and the
+encoder), which wait for ROADMAP §1 item 7.
 
 Parameters for each pattern position are stacked over groups, as in the
 JAX package (``groups/b{i}`` leaves of shape (num_groups, ...)). Where
 the JAX package scans over that axis, the port loops over it in Python,
-indexing each leaf; there is no backward pass, so there is no remat.
+indexing each leaf; there is no backward pass, so there is no remat. The
+MoE blocks' load-balance losses are summed over the stack as the JAX
+package sums them: per group, then over the groups.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, ParamMeta, norm_meta, stack_group
 from repro_torch.models.layers import (
     apply_norm,
@@ -33,17 +37,19 @@ from repro_torch.models.layers import (
 )
 
 DENSE_KINDS = ("attn", "attn_local", "attn_nc")
+MOE_KINDS = ("moe", "moe_local")
+PORTED_KINDS = DENSE_KINDS + MOE_KINDS
 
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP §1 item 7: MoE, Mamba2, RWKV6, "
+        f"{what} is not ported yet (ROADMAP §1 item 7: Mamba2, RWKV6, "
         "cross-attention, the shared attention block and the encoder)")
 
 
-def _check_dense(cfg: ModelConfig):
+def _check_ported(cfg: ModelConfig):
     for kind in cfg.pattern:
-        if kind not in DENSE_KINDS:
+        if kind not in PORTED_KINDS:
             raise _not_ported(f"block kind {kind!r}")
     if cfg.shared_attn:
         raise _not_ported("shared_attn")
@@ -58,9 +64,12 @@ def _check_dense(cfg: ModelConfig):
 
 def block_metas(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
-    if kind in DENSE_KINDS:
-        m = {"ln1": norm_meta(d), "attn": attn.attn_metas(cfg), "ln2": norm_meta(d),
-             "mlp": mlp_metas(cfg)}
+    if kind in PORTED_KINDS:
+        m = {"ln1": norm_meta(d), "attn": attn.attn_metas(cfg), "ln2": norm_meta(d)}
+        if kind in MOE_KINDS:
+            m["moe"] = moe_mod.moe_metas(cfg)
+        else:
+            m["mlp"] = mlp_metas(cfg)
         if cfg.post_norm:
             m["ln1_post"] = norm_meta(d)
             m["ln2_post"] = norm_meta(d)
@@ -69,7 +78,7 @@ def block_metas(cfg: ModelConfig, kind: str) -> dict:
 
 
 def model_metas(cfg: ModelConfig) -> dict:
-    _check_dense(cfg)
+    _check_ported(cfg)
     groups = {
         f"b{i}": stack_group(block_metas(cfg, kind), cfg.num_groups)
         for i, kind in enumerate(cfg.pattern)
@@ -99,17 +108,27 @@ def _attn_sub(cfg, p, x, kind, positions, want_cache):
     return x + out, cache
 
 
+def _ffn(cfg: ModelConfig, kind: str, p: dict, h):
+    """The block's MLP or MoE on its normed input: (out, aux_loss), aux
+    None for an MLP."""
+    if kind in MOE_KINDS:
+        return moe_mod.moe_apply(cfg, p["moe"], h)
+    return mlp_apply(cfg, p["mlp"], h), None
+
+
 def block_apply(cfg: ModelConfig, kind: str, p: dict, x, *, positions,
                 want_cache: bool = False):
-    """Returns (x, cache_or_None)."""
-    if kind not in DENSE_KINDS:
+    """Returns (x, aux_loss, cache_or_None)."""
+    if kind not in PORTED_KINDS:
         raise _not_ported(f"block kind {kind!r}")
     x, cache = _attn_sub(cfg, p, x, kind, positions, want_cache)
     h = apply_norm(cfg, x, p["ln2"])
-    out = mlp_apply(cfg, p["mlp"], h)
+    out, aux = _ffn(cfg, kind, p, h)
     if cfg.post_norm:
         out = apply_norm(cfg, out, p["ln2_post"])
-    return x + out, cache
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux, cache
 
 
 def group_params(params: dict, g: int) -> dict:
@@ -119,12 +138,17 @@ def group_params(params: dict, g: int) -> dict:
 
 
 def _stack_forward(cfg: ModelConfig, params: dict, x, positions):
-    """Decoder trunk (no embed/unembed)."""
+    """Decoder trunk (no embed/unembed). Returns (x, total_aux): each
+    group's blocks' aux losses summed, then the groups' sums."""
+    auxs = []
     for g in range(cfg.num_groups):
         gp = group_params(params, g)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(cfg.pattern):
-            x, _ = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions)
-    return x
+            x, a, _ = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions)
+            aux = aux + a
+        auxs.append(aux)
+    return x, torch.stack(auxs).sum()
 
 
 def _positions(B: int, S: int, device):
@@ -132,15 +156,15 @@ def _positions(B: int, S: int, device):
 
 
 def forward(cfg: ModelConfig, params: dict, tokens):
-    """tokens: (B,S) int. Returns logits (B,S,V). (The JAX package also
-    returns the MoE aux loss, always 0 for dense stacks.)"""
-    _check_dense(cfg)
+    """tokens: (B,S) int. Returns (logits (B,S,V), aux): aux is the MoE
+    load-balance loss summed over the stack (0 for dense stacks)."""
+    _check_ported(cfg)
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
     x = embed_apply(cfg, params["embed"], tokens, positions)
-    x = _stack_forward(cfg, params, x, positions)
+    x, aux = _stack_forward(cfg, params, x, positions)
     x = apply_norm(cfg, x, params["final_norm"])
-    return unembed_apply(cfg, params["embed"], x)
+    return unembed_apply(cfg, params["embed"], x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +187,7 @@ def ring_len(cfg: ModelConfig, kind: str, seq: int) -> int:
 def cache_metas(cfg: ModelConfig, batch: int, seq: int) -> dict:
     """ParamMeta tree describing the decode cache: for each pattern
     position, k and v of shape (num_groups, batch, R, KV, hd)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     kv, hd, G = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_groups
     caches = {}
     for i, kind in enumerate(cfg.pattern):
@@ -188,7 +212,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cuda"
 def block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int):
     """One-token decode for a single block. Returns (x, cache), with the
     cache updated in place."""
-    if kind not in ("attn", "attn_local"):
+    if kind not in ("attn", "attn_local") + MOE_KINDS:
         raise _not_ported(f"decode of block kind {kind!r}")
     h = apply_norm(cfg, x, p["ln1"])
     out, cache = attn.decode_self_attention(cfg, p["attn"], h, cache, pos,
@@ -197,7 +221,7 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int):
         out = apply_norm(cfg, out, p["ln1_post"])
     x = x + out
     h = apply_norm(cfg, x, p["ln2"])
-    out = mlp_apply(cfg, p["mlp"], h)
+    out, _ = _ffn(cfg, kind, p, h)
     if cfg.post_norm:
         out = apply_norm(cfg, out, p["ln2_post"])
     return x + out, cache
@@ -207,7 +231,7 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, tokens, pos: int):
     """serve_step: one new token against a cache of `seq` positions.
     tokens: (B,1) int; pos: int. Returns (logits (B,1,V), caches), the
     caches written in place."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     B = tokens.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device)
     x = embed_apply(cfg, params["embed"], tokens, positions)
@@ -238,7 +262,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens, cache_len: int):
     caches sized cache_len). Each block's prompt K/V is written into a
     cache allocated once at its final size (the JAX package stacks them,
     then pads or rolls)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
     x = embed_apply(cfg, params["embed"], tokens, positions)
@@ -246,8 +270,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens, cache_len: int):
     for g in range(cfg.num_groups):
         gp = group_params(params, g)
         for i, kind in enumerate(cfg.pattern):
-            x, c = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions,
-                               want_cache=True)
+            x, _, c = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions,
+                                  want_cache=True)
             key = f"b{i}"
             if key not in caches:
                 R = ring_len(cfg, kind, cache_len)

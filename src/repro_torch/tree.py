@@ -17,39 +17,42 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _flatten(t, leaves: list):
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_flatten(t[k], leaves) for k in keys))
+    if _is_namedtuple(t):
+        return ("namedtuple", type(t), tuple(_flatten(c, leaves) for c in t))
+    if isinstance(t, (tuple, list)):
+        return (type(t).__name__, len(t), tuple(_flatten(c, leaves) for c in t))
+    leaves.append(t)
+    return None
+
+
 def flatten(tree) -> tuple[list, Any]:
-    """``(leaves, treedef)``; `unflatten` inverts it."""
+    """``(leaves, treedef)``; `unflatten` inverts it. (Module-level helpers
+    rather than a recursive closure: a closure that calls itself is a
+    reference cycle, which would keep the leaves, gigabytes of weights,
+    alive until the cyclic collector runs.)"""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def rec(t):
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(rec(t[k]) for k in keys))
-        if _is_namedtuple(t):
-            return ("namedtuple", type(t), tuple(rec(c) for c in t))
-        if isinstance(t, (tuple, list)):
-            return (type(t).__name__, len(t), tuple(rec(c) for c in t))
-        leaves.append(t)
-        return None
 
-    return leaves, rec(tree)
+def _unflatten(d, it):
+    if d is None:
+        return next(it)
+    kind, meta, children = d
+    built = [_unflatten(c, it) for c in children]
+    if kind == "dict":
+        return dict(zip(meta, built))
+    if kind == "namedtuple":
+        return meta(*built)
+    return tuple(built) if kind == "tuple" else list(built)
 
 
 def unflatten(treedef, leaves) -> Any:
     it = iter(leaves)
-
-    def rec(d):
-        if d is None:
-            return next(it)
-        kind, meta, children = d
-        built = [rec(c) for c in children]
-        if kind == "dict":
-            return dict(zip(meta, built))
-        if kind == "namedtuple":
-            return meta(*built)
-        return tuple(built) if kind == "tuple" else list(built)
-
-    out = rec(treedef)
+    out = _unflatten(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out

@@ -10,8 +10,10 @@ threshold bits) exactly, with byte-identical masks; K3 (RMSNorm) and K4
 and 2e-5 in float32. K4's bfloat16 cases go through its tensor-core
 kernel, its float32 cases through its CUDA-core kernel.
 
-Also on the card, though no kernel of the port computes it: the
-student's ReLU6 gradient at its kinks (0.5, as the JAX package's
+Also on the card, though no kernel of the port computes them: the MoE
+layer's dispatch (the same routing, positions and keep mask as on the
+CPU, outputs within 1e-5 in relative norm in float32, and two runs equal
+bit for bit), and the student's ReLU6 gradient at its kinks (0.5, as the JAX package's
 ``jnp.clip``; ROADMAP F9), whose closed-interval bound below 0 is a
 subnormal.
 
@@ -25,6 +27,8 @@ a profiler trace of one replay), the auto race's record, no aliasing
 between groups replayed through one graph, and `cache_clear` returning
 the graphs' memory.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -256,17 +260,18 @@ def test_rmsnorm_kernel_unaligned_rows(dev, dtype):
     _check_rmsnorm(x, w)
 
 
-@pytest.mark.parametrize("S,H,KV,window,softcap,dtype", [
-    (8000, 16, 8, 4096, 50.0, torch.bfloat16),   # Gemma-2 9B local layer
-    (8000, 16, 8, 0, 50.0, torch.bfloat16),      # Gemma-2 9B global layer
-    (1000, 8, 1, 0, 0.0, torch.bfloat16),        # MQA (Gemma 2B)
-    (777, 8, 1, 300, 30.0, torch.float32),       # ragged S, window, float32
+@pytest.mark.parametrize("S,H,KV,hd,window,softcap,dtype", [
+    (8000, 16, 8, 256, 4096, 50.0, torch.bfloat16),  # Gemma-2 9B local layer
+    (8000, 16, 8, 256, 0, 50.0, torch.bfloat16),     # Gemma-2 9B global layer
+    (8000, 16, 16, 128, 0, 0.0, torch.bfloat16),     # Moonlight-16B-A3B (G = 1)
+    (1000, 8, 1, 256, 0, 0.0, torch.bfloat16),       # MQA (Gemma 2B)
+    (777, 8, 1, 256, 300, 30.0, torch.float32),      # ragged S, window, float32
 ])
-def test_flash_attention_kernel(dev, S, H, KV, window, softcap, dtype):
+def test_flash_attention_kernel(dev, S, H, KV, hd, window, softcap, dtype):
     from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    B, hd = (2, 256) if S == 8000 else (1, 256)
+    B = 2 if S == 8000 else 1
     g = torch.Generator(device=dev).manual_seed(5)
     q = torch.randn(B, S, KV, H // KV, hd, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
@@ -301,6 +306,7 @@ def test_flash_attention_kernel(dev, S, H, KV, window, softcap, dtype):
     (1, 96, 2, 2, 256, True, 20, 50.0, 1, 1),      # a row's first live tile fully masked
     (2, 1000, 2, 2, 256, False, 0, 0.0, 1, 1),     # non-causal
     (1, 1000, 1, 8, 256, True, 0, 0.0, 1, 1),      # MQA
+    (1, 1000, 16, 1, 128, True, 0, 0.0, 1, 1),     # hd 128, G = 1, no softcap (Moonlight)
     (2, 3000, 2, 2, 256, True, 0, 50.0, 42, 21),   # Gemma-2's input magnitudes
 ])
 def test_flash_attention_bf16_route(dev, B, S, KV, G, hd, causal, window, softcap,
@@ -321,6 +327,33 @@ def test_flash_attention_bf16_route(dev, B, S, KV, G, hd, causal, window, softca
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert torch.isfinite(got.float()).all()
     assert _within_bf16_ulp(got, flash_attention_ref(q, k, v, **kw))
+
+
+def test_flash_attention_bf16_near_hard_max_as_close_to_float64_as_plain(dev):
+    """Large scores without a softcap (q ~ N(0, 42^2), k and v ~ N(0,
+    21^2): scores of ~1e4 before the scale) make the softmax nearly a hard
+    max, and outputs that mix two keys cancel: there the float32 plain
+    version is itself many bf16 ulps from the float64 value, so one ulp of
+    it cannot be asked. K4 must put no more outputs than the plain version
+    more than one bf16 ulp (+1e-5) from attention in float64."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, S, KV, hd = 2, 1500, 16, 128
+    q = (torch.randn(B, S, KV, 1, hd, generator=g, device=dev) * 42).to(torch.bfloat16)
+    k = (torch.randn(B, S, KV, hd, generator=g, device=dev) * 21).to(torch.bfloat16)
+    v = (torch.randn(B, S, KV, hd, generator=g, device=dev) * 21).to(torch.bfloat16)
+    got = attn_ops.flash_attention(q, k, v, causal=True, window=0, softcap=0.0).double()
+    want = flash_attention_ref(q, k, v, causal=True).double()
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.double(), k.double()) * hd**-0.5
+    s.masked_fill_(~torch.ones(S, S, dtype=torch.bool, device=dev).tril(), -1e300)
+    truth = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(s, dim=-1), v.double())
+    ulp = torch.exp2(torch.floor(torch.log2(truth.abs().clamp_min(1e-30))) - 7)
+    kernel_off = int(((got - truth).abs() > ulp + 1e-5).sum())
+    plain_off = int(((want - truth).abs() > ulp + 1e-5).sum())
+    assert plain_off > 0  # the case is as ill-conditioned as described
+    assert kernel_off <= plain_off, (kernel_off, plain_off)
 
 
 def test_flash_attention_bf16_rejects_strides_tma_cannot_take(dev):
@@ -538,11 +571,19 @@ def test_graph_replay_counts_k1_launches_exactly(dev):
     graph(*args)
     torch.cuda.synchronize()
     assert adam_ops.launches == 5 + 1  # one warm-up iteration, one replay
+    pad = torch.zeros(1, device=dev)
     for n in (2, 3):
+        # the tracer drops records from the end of a trace that stops right
+        # after the work; small launches and a pause take that tail (see
+        # chip_smoke.py)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             graph(*args)
             torch.cuda.synchronize()
+            for _ in range(512):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.2)
         assert adam_ops.launches == 5 * n + 1
         # what the counter adds per replay is what the device ran
         assert sum(ev.device_type == torch.autograd.DeviceType.CUDA
@@ -614,3 +655,39 @@ def test_cache_clear_returns_the_graph_memory(dev):
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved(dev) < held
     assert torch.cuda.memory_reserved(dev) <= base + (held - base) // 4
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mixtral-8x22b"])
+def test_moe_on_the_card(dev, arch):
+    """`moe_apply` on the card: against itself on the CPU in float32 (in
+    norm: cuBLAS sums in another order; the routing and positions are held
+    equal first), and twice on the card, bit for bit: the dispatch writes
+    each kept (expert, position) row once, so nothing depends on the order
+    of atomics."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+
+    cfg = get_smoke(arch).replace(capacity_factor=1.0)
+    params = init_params(moe.moe_metas(cfg), torch.Generator().manual_seed(0),
+                         torch.float32, torch.device("cpu"))
+    x = torch.randn(2, 256, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    want, aux_want = moe.moe_apply(cfg, params, x)
+    params_d = {k: (v.to(dev) if isinstance(v, torch.Tensor)
+                    else {kk: vv.to(dev) for kk, vv in v.items()})
+                for k, v in params.items()}
+    x_d = x.to(dev)
+    _, idx, _ = moe._route(cfg, params, x.reshape(-1, cfg.d_model))
+    _, idx_d, _ = moe._route(cfg, params_d, x_d.reshape(-1, cfg.d_model))
+    assert torch.equal(idx_d.cpu(), idx)
+    pos, keep = moe.dispatch(cfg, idx)
+    pos_d, keep_d = moe.dispatch(cfg, idx_d)
+    assert torch.equal(pos_d.cpu(), pos) and torch.equal(keep_d.cpu(), keep)
+    assert (~keep).any()
+    got, aux = moe.moe_apply(cfg, params_d, x_d)
+    again, aux_again = moe.moe_apply(cfg, params_d, x_d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(aux, aux_again)
+    rel = float((got.cpu() - want).norm() / want.norm())
+    assert rel < 1e-5, rel
+    assert abs(float(aux) - float(aux_want)) < 1e-5

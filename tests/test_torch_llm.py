@@ -1,11 +1,16 @@
-"""The port's dense LLM serving path against the JAX package, on the smoke
+"""The port's LLM serving path against the JAX package, on the smoke
 configs of Gemma-2 9B (local + global attention, softcaps, post-norms;
-window 16) and Gemma 2B (MQA): the same parameters (the JAX package's
-init, carried over with `params_from_numpy`) and the same prompts.
+window 16), Gemma 2B (MQA), Moonlight-16B-A3B (MoE: 4 experts top-2 and
+a shared expert, SwiGLU), Mixtral 8x22B (windowed MoE, no shared
+expert), Llama-4 Maverick (dense and MoE blocks alternating, top-1) and
+Llama 3 405B (dense SwiGLU): the same parameters (the JAX package's init,
+carried over with `params_from_numpy`) and the same prompts.
 
-Held: `forward` logits; `prefill` logits and every cache leaf; 4
-`decode_step`s, whose logits agree and whose greedy tokens are
-identical; the serving entry point end to end. Tolerances on float32:
+Held: `forward` logits and the MoE aux loss; `prefill` logits and every
+cache leaf; 4 `decode_step`s, whose logits agree and whose greedy tokens
+are identical (a decode step of the MoE configs has cap = 1, so a token
+is dropped whenever both rows pick the same expert, as in the JAX
+package); the serving entry point end to end. Tolerances on float32:
 rtol 1e-4, atol 1e-5 (the port's attention takes a two-pass softmax and
 the JAX model an online one over 512-row chunks; matmul sums run in
 another order), and atol adds 1e-4 of the largest |value| of each
@@ -32,7 +37,9 @@ from repro_torch.launch.serve import serve
 from repro_torch.models.registry import build, params_from_numpy
 
 RTOL, ATOL, SCALE_ATOL = 1e-4, 1e-5, 1e-4  # SCALE_ATOL: times max |want|
-ARCHS = ["gemma2-9b", "gemma-2b"]
+ARCHS = ["gemma2-9b", "gemma-2b", "moonshot-v1-16b-a3b", "mixtral-8x22b",
+         "llama4-maverick-400b-a17b", "llama3-405b"]
+MOE_ARCHS = ["moonshot-v1-16b-a3b", "mixtral-8x22b", "llama4-maverick-400b-a17b"]
 B, S, N_DECODE = 2, 40, 4
 
 
@@ -55,24 +62,34 @@ def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
 
 
+def _paths(d, prefix=()):
+    """Key paths of a nest of dicts, in sorted-key (flatten) order."""
+    if not isinstance(d, dict):
+        return [prefix]
+    return [p for k in sorted(d) for p in _paths(d[k], prefix + (k,))]
+
+
 def test_configs_and_param_trees_match():
     for arch in ARCHS:
         for get_j, get_t in ((get_smoke_jax, get_smoke), (get_config_jax, get_config)):
             cfg_j, cfg_t = get_j(arch), get_t(arch)
-            assert cfg_t.name == cfg_j.name and cfg_t.pattern == cfg_j.pattern
+            assert cfg_t == cfg_t.replace(**{f: getattr(cfg_j, f)
+                                             for f in cfg_j.__dataclass_fields__})
             assert build(cfg_t).num_params() == build_jax(cfg_j).num_params()
-    metas_t = build(get_smoke("gemma2-9b")).metas()
-    params_j = build_jax(get_smoke_jax("gemma2-9b")).init(jax.random.PRNGKey(0))
-    leaves_t, def_t = tree.flatten(metas_t)
-    leaves_j, _ = jax.tree.flatten(params_j)
-    assert [m.shape for m in leaves_t] == [a.shape for a in leaves_j]
+        metas_t = build(get_smoke(arch)).metas()
+        params_j = build_jax(get_smoke_jax(arch)).init(jax.random.PRNGKey(0))
+        leaves_t, _ = tree.flatten(metas_t)
+        leaves_j = jax.tree_util.tree_flatten_with_path(params_j)[0]
+        assert [m.shape for m in leaves_t] == [a.shape for _, a in leaves_j]
+        assert _paths(metas_t) == [tuple(p.key for p in path) for path, _ in leaves_j]
     assert build(get_config("gemma2-9b")).num_params() == 9_241_705_984
+    assert build(get_config("moonshot-v1-16b-a3b")).num_params() == 28_552_923_136
 
 
 def test_unported_kinds_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x22b")
-    cfg = get_smoke("gemma-2b").replace(pattern=("moe",))
+        get_config("zamba2-7b")
+    cfg = get_smoke("gemma-2b").replace(pattern=("mamba",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(cfg).metas()
 
@@ -80,14 +97,21 @@ def test_unported_kinds_raise():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_jax(arch):
     cfg_j, cfg_t, params_j, params_t, tokens = _setup(arch)
-    want, _ = build_jax(cfg_j).forward(params_j, jnp.asarray(tokens))
-    got = build(cfg_t).forward(params_t, torch.from_numpy(tokens))
+    want, aux_j = build_jax(cfg_j).forward(params_j, jnp.asarray(tokens))
+    got, aux_t = build(cfg_t).forward(params_t, torch.from_numpy(tokens))
     assert got.shape == (B, S, cfg_t.vocab_size)
     _close(got, want)
+    assert aux_t.dtype == torch.float32 and aux_t.shape == ()
+    np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=RTOL, atol=ATOL)
+    assert (float(aux_t) > 0.5) == (arch in MOE_ARCHS)  # ~1 for near-uniform routing
 
 
 @pytest.mark.parametrize("arch,ring", [("gemma2-9b", False), ("gemma-2b", False),
-                                       ("gemma2-9b", True)])
+                                       ("gemma2-9b", True),
+                                       ("moonshot-v1-16b-a3b", False),
+                                       ("mixtral-8x22b", False), ("mixtral-8x22b", True),
+                                       ("llama4-maverick-400b-a17b", False),
+                                       ("llama3-405b", False)])
 def test_prefill_and_decode_match_jax(arch, ring):
     """Prefill's logits and caches, then 4 decode steps. ``ring`` turns on
     the ring cache: the local layers keep min(seq, window) = 16 slots."""
@@ -129,7 +153,7 @@ def test_bf16_forward_matches_jax_in_norm():
         "gemma2-9b", param_dtype="bfloat16", compute_dtype="bfloat16")
     assert params_t["embed"]["tok"].dtype == torch.bfloat16
     want, _ = build_jax(cfg_j).forward(params_j, jnp.asarray(tokens))
-    got = build(cfg_t).forward(params_t, torch.from_numpy(tokens))
+    got, _ = build(cfg_t).forward(params_t, torch.from_numpy(tokens))
     assert got.dtype == torch.bfloat16
     got, want = _np(got), _np(want)
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
@@ -137,9 +161,10 @@ def test_bf16_forward_matches_jax_in_norm():
 
 
 @pytest.mark.parametrize("field,value", [("pos", "learned"), ("pos", "sinusoidal"),
-                                         ("mlp_act", "swiglu"), ("mlp_act", "gelu")])
+                                         ("mlp_act", "gelu")])
 def test_unported_layer_options_raise(field, value):
-    """Positions and MLPs that no ported config uses wait for item 7."""
+    """Positions and the plain-gelu MLP, which no ported config uses, wait
+    for item 7."""
     cfg = get_smoke("gemma-2b").replace(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(cfg).metas()
@@ -160,6 +185,19 @@ def test_serve_cli_tokens_as_in_jax(n_tokens, capsys):
         sample = [l for l in capsys.readouterr().out.splitlines() if l.startswith("sample:")]
         counts.append(len(eval(sample[0].split(":", 1)[1])))
     assert counts == [n_tokens, n_tokens]
+
+
+def test_serve_cli_takes_the_moe_smoke_config(capsys):
+    """``--arch moonshot-v1-16b-a3b --device cpu`` serves the MoE smoke
+    config: finite logits, no kernel launches, ``--tokens`` tokens."""
+    from repro_torch.launch import serve as serve_torch
+
+    serve_torch.main(["--arch", "moonshot-v1-16b-a3b", "--batch", "2", "--prompt-len", "8",
+                      "--tokens", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "arch=moonshot-v1-16b-a3b device=cpu" in out and "finite=True" in out
+    sample = [l for l in out.splitlines() if l.startswith("sample:")]
+    assert len(eval(sample[0].split(":", 1)[1])) == 3
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -192,3 +230,65 @@ def test_init_cache_matches_jax(ring):
     leaves_j, leaves_t = jax.tree.leaves(want), tree.leaves(got)
     assert [a.shape for a in leaves_j] == [tuple(t.shape) for t in leaves_t]
     assert all(t.dtype == torch.float32 and not t.any() for t in leaves_t)
+
+
+def test_large_leaves_draw_slice_by_slice(monkeypatch):
+    """A leaf whose float32 draw exceeds `WHOLE_DRAW_BYTES` is drawn one
+    stacked slice at a time into its final tensor: the right shape, dtype
+    and scale, the same weights from the same seed, and each slice the
+    next draw of the generator (what drawing the slices in turn gives)."""
+    from repro_torch.models import common
+
+    meta = common.ParamMeta((6, 64, 96))  # fan-in 64
+    monkeypatch.setattr(common, "WHOLE_DRAW_BYTES", 4 * 64 * 96)  # one slice
+    draw = lambda: common._leaf_init(meta, torch.Generator().manual_seed(7),
+                                     torch.bfloat16, torch.device("cpu"))
+    a, b = draw(), draw()
+    assert a.shape == meta.shape and a.dtype == torch.bfloat16
+    assert torch.equal(a, b)
+    gen = torch.Generator().manual_seed(7)
+    want = torch.stack([torch.randn((64, 96), generator=gen) / 8.0 for _ in range(6)])
+    assert torch.equal(a, want.to(torch.bfloat16))
+    assert abs(float(a.float().std()) - 1 / 8) < 0.01
+    monkeypatch.undo()
+    whole = draw()  # under the default size: one draw of the whole leaf
+    gen = torch.Generator().manual_seed(7)
+    assert torch.equal(whole, (torch.randn(meta.shape, generator=gen) / 8.0).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("get", [get_smoke, get_config])
+def test_gemma2_leaves_draw_whole(get):
+    """Every leaf of Gemma-2 9B stays under `WHOLE_DRAW_BYTES` in float32,
+    so its weights from a seed are what they were before sliced draws;
+    Moonlight's stacked expert leaves are above it."""
+    from repro_torch.models.common import WHOLE_DRAW_BYTES
+
+    sizes = [4 * int(np.prod(m.shape)) for m in tree.leaves(build(get("gemma2-9b")).metas())]
+    assert max(sizes) <= WHOLE_DRAW_BYTES
+    moe = build(get_config("moonshot-v1-16b-a3b")).metas()["groups"]["b0"]["moe"]
+    assert all(4 * int(np.prod(moe[k].shape)) > WHOLE_DRAW_BYTES for k in ("wg", "wu", "wd"))
+
+
+def test_group_params_free_the_weights_without_the_cycle_collector():
+    """Views taken by `group_params` (a `tree_map`) hold no reference once
+    dropped: with the cyclic collector off, deleting the params frees the
+    stacked leaves at once (a recursive closure in `tree.flatten` kept them
+    alive until a collection, 16.7 GB of Gemma-2 9B's on the card)."""
+    import gc
+    import weakref
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_smoke("gemma2-9b")
+    params = build(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    leaf = weakref.ref(params["groups"]["b0"]["mlp"]["wg"])
+    gc.collect()
+    gc.disable()
+    try:
+        gp = tfm.group_params(params, 0)
+        w = tree.tree_map(lambda a: a + 0, gp)  # unflatten too
+        assert tree.unflatten(tree.flatten(w)[1], tree.leaves(w)).keys() == w.keys()
+        del gp, w, params
+        assert leaf() is None
+    finally:
+        gc.enable()
