@@ -112,10 +112,40 @@ its own:
    its plain version is; both timed, K4 beside its bound and
    ``scaled_dot_product_attention(is_causal=True)``, which computes the
    same function there; the shares of the analytic bound as for Gemma-2;
-9. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
-   and K4's on both LLM paths), error against its plain version, times
-   and bound;
-10. the last line, ``{"ok": true, "device": {...}}``.
+9. the hybrid serving path, after Moonlight's weights are freed: Zamba2-7B
+   at full width and depth (81 Mamba2 layers in 27 groups of 3, one shared
+   attention + SwiGLU block before each group, 32 heads of 112;
+   6,635,851,856 random bf16 parameters drawn on the card from seed 0),
+   the same batch, prompts and decode steps, once cold and once timed
+   (tokens equal): K3 217 launches per prefill and per decode step (2 per
+   Mamba2 layer, 2 per shared block, the final norm), K4 27 per prefill,
+   all bf16, 0 in decode. The prefill's hand-off to decode: each of group
+   0's blocks (the shared block and 3 Mamba2 blocks) decoding position
+   8,000 from its prefill caches against the block over 8,001 positions,
+   on the run's own inputs, within ``HANDOFF_BLOCK_BOUND``; the logits of
+   the first decode step against ``forward``'s over the same 8,001 tokens,
+   printed (the random init's attention is a hard max, see
+   ``HANDOFF_LOGITS_BOUND``). The weights are dropped (their bytes checked
+   freed); the shares of the analytic bound; K3 on the run's first Mamba2
+   inner norm input (2, 8000, 7168) and its last position (its split-row
+   variant at both), and K4 at head dim 112 (2, 8000, 32, 1, 112) on
+   N(0, 1) inputs within one bf16 ulp of its plain version and on the
+   run's own q, k, v against float64 as for Moonlight, timed beside its
+   bound and ``scaled_dot_product_attention(is_causal=True)``; then the
+   hand-off again with the same draws in float32 (the blocks within
+   1e-4);
+10. the recurrent serving path: RWKV6-3B at full width and depth (32
+   layers, d_model 2,560, 40 wkv heads of 64; 2,690,501,120 random bf16
+   parameters), the same batch, prompts and decode steps: K3 32 launches
+   per prefill and per decode step (``ln_x``; the block norms are
+   LayerNorm), K4 none; the hand-off as for Zamba2, the logits held
+   within ``HANDOFF_LOGITS_BOUND`` too; the weights freed; the shares of
+   the analytic bound; K3 on the run's layer-0 ``ln_x`` input (2, 8000,
+   2560) (warp per row) and its last position (split row);
+11. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
+   and K4's on all four LLM paths), error against its plain version,
+   times and bound;
+12. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; it does so too without CUDA, and when ``src/`` is missing (the
@@ -161,11 +191,17 @@ from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
 from repro_torch.kernels.topk_mask import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.topk_mask import ref as topk_ref  # noqa: E402
 from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16  # noqa: E402
-from repro_torch.launch.serve import (MAIN_BATCH, MAIN_DECODE, MAIN_PROMPT,  # noqa: E402
-                                      MOE_BATCH, MOE_DECODE, MOE_PROMPT,
-                                      main_path_inputs, moe_path_inputs, serve)
+from repro_torch.launch.serve import (HYBRID_BATCH, HYBRID_DECODE,  # noqa: E402
+                                      HYBRID_PROMPT, MAIN_BATCH, MAIN_DECODE,
+                                      MAIN_PROMPT, MOE_BATCH, MOE_DECODE, MOE_PROMPT,
+                                      RECURRENT_BATCH, RECURRENT_DECODE,
+                                      RECURRENT_PROMPT, hybrid_path_inputs,
+                                      main_path_inputs, moe_path_inputs,
+                                      recurrent_path_inputs, serve)
+from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.metrics.miou import miou  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.ssm import mamba2, rwkv6  # noqa: E402
 from repro_torch.models.attention import _proj_qkv  # noqa: E402
 from repro_torch.models.layers import apply_norm, embed_apply  # noqa: E402
 from repro_torch.models.registry import build as build_model  # noqa: E402
@@ -1243,16 +1279,39 @@ def k4_compare(q, k, v, **kw) -> float:
     return err
 
 
+def expected_launches(cfg) -> tuple[int, int]:
+    """(K3 launches per prefill and per decode step, K4 launches per
+    prefill), from the block structure: an attention block's RMSNorms (2,
+    4 with post-norms) and one K4; a Mamba2 block's ln1 and inner norm; an
+    RWKV6 block's ln1, ln2 and ln_x (its block norms are K3 only where
+    the model's norm is RMSNorm); the shared attention block's 2 norms and
+    one K4 per group; the final norm. Decode never launches K4."""
+    rms = int(cfg.norm == "rms")
+    k3 = k4 = 0
+    for kind in cfg.pattern:
+        if kind == "mamba":
+            k3 += rms + 1
+        elif kind == "rwkv":
+            k3 += 2 * rms + 1
+        else:
+            k3 += (4 if cfg.post_norm else 2) * rms
+            k4 += 1
+    k3, k4 = k3 * cfg.num_groups, k4 * cfg.num_groups
+    if cfg.shared_attn:
+        k3 += 2 * rms * cfg.num_groups
+        k4 += cfg.num_groups
+    return k3 + rms, k4
+
+
 def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     """One LLM at full width and depth: random bf16 weights drawn on the
     card (``path_inputs(dev)``), a batch of random prompts, prefill, then
     ``n_decode`` greedy decode steps through `launch.serve.serve`. A first,
     cold run (the kernels' first launches, cuBLAS's first calls at these
     shapes) goes before the run whose times and launch counts are kept:
-    K3 and K4 are counted from 0 just before it and read just after. K3
-    runs twice a block (four times with post-norms) and once more at the
-    end, per prefill and per decode step; K4 once a layer in the prefill,
-    on its bf16 route, and never in decode."""
+    K3 and K4 are counted from 0 just before it and read just after, and
+    must equal `expected_launches` (Gemma-2: K3 169 per prefill and per
+    decode step, K4 42 per prefill), all K4 launches on its bf16 route."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1262,13 +1321,21 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     n_params = sum(l.numel() for l in tree.leaves(params))
     check(n_params == build_model(cfg).num_params(), "parameter count")
     batch, prompt_len = prompt.shape
-    moe = (f", {cfg.num_experts} experts top-{cfg.experts_per_token} + "
+    extra = (f", {cfg.num_experts} experts top-{cfg.experts_per_token} + "
            f"{cfg.num_shared_experts} shared of d_ff {cfg.expert_d_ff}, capacity "
            f"{cfg.capacity_factor}" if cfg.num_experts else "")
+    if "mamba" in cfg.pattern:
+        extra += (f", pattern {cfg.pattern} x {cfg.num_groups} groups, Mamba2 d_inner "
+                f"{cfg.ssm_expand * cfg.d_model} in heads of {cfg.ssm_head_dim}, d_state "
+                f"{cfg.ssm_state}, conv {cfg.ssm_conv}, chunk {cfg.ssm_chunk}, shared "
+                f"attention {cfg.shared_attn}")
+    if "rwkv" in cfg.pattern:
+        extra += (f", RWKV6 {cfg.d_model // cfg.ssm_head_dim} wkv heads of "
+                f"{cfg.ssm_head_dim}, channel-mix d_ff {cfg.d_ff}, {cfg.norm} norms")
     print(f"{label} path: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
           f"window {cfg.window_size}, softcaps {cfg.attn_logit_softcap}/"
-          f"{cfg.final_logit_softcap}, {cfg.mlp_act}{moe}), {n_params:,} params in "
+          f"{cfg.final_logit_softcap}, {cfg.mlp_act}{extra}), {n_params:,} params in "
           f"{cfg.param_dtype}, drawn on the card in {draw_s:.1f} s "
           f"({torch.cuda.memory_allocated():,} bytes allocated); batch {batch}, "
           f"prompts of {prompt_len} tokens, {n_decode} decode steps")
@@ -1291,7 +1358,7 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
           f"{r['launches']['decode']} over {n_decode} steps; total {launches} "
           f"(K4 by route: {launches['flash_attention_by_route']})")
     print(f"{label} first 16 generated tokens of row 0: {toks[0, :16].tolist()}")
-    n_norms = (4 if cfg.post_norm else 2) * cfg.num_layers + 1
+    n_norms, n_attn = expected_launches(cfg)
     check(peak < capacity, f"{label}: peak memory under the card's")
     check(r["finite"], f"{label}: every logit finite")
     check(torch.equal(toks, cold["tokens"]),
@@ -1299,15 +1366,15 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     check(tuple(toks.shape) == (batch, n_decode + 1), f"{label}: generated tokens' shape")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"{label}: tokens in the vocabulary")
-    check(r["launches"]["prefill"] == {"rms_norm": n_norms,
-                                       "flash_attention": cfg.num_layers},
-          f"{label}: prefill launches {r['launches']['prefill']}")
+    check(r["launches"]["prefill"] == {"rms_norm": n_norms, "flash_attention": n_attn},
+          f"{label}: prefill launches {r['launches']['prefill']}, expected "
+          f"{(n_norms, n_attn)}")
     check(r["launches"]["decode"] == {"rms_norm": n_norms * n_decode,
                                       "flash_attention": 0},
           f"{label}: decode launches {r['launches']['decode']}")
     check(launches["rms_norm"] == n_norms * (n_decode + 1)
-          and launches["flash_attention"] == cfg.num_layers, f"{label}: path launches")
-    check(launches["flash_attention_by_route"] == {"bf16_wgmma": cfg.num_layers,
+          and launches["flash_attention"] == n_attn, f"{label}: path launches")
+    check(launches["flash_attention_by_route"] == {"bf16_wgmma": n_attn,
                                                    "f32_cuda_cores": 0},
           f"{label}: K4 routes {launches['flash_attention_by_route']}")
     return cfg, params, prompt, r, cold, launches, peak
@@ -1568,39 +1635,48 @@ def k4_against_float64(q, k, v) -> dict:
     return out
 
 
-def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
-    """K3 and K4 on the MoE run's layer-0 inputs: K3 at the prefill's and a
-    decode step's shape, K4 at (2, 8000, 16, 1, 128) without softcap or
-    window, each within one bf16 ulp of its plain version; then their
-    times beside their bounds, the plain versions and the PyTorch calls
-    (K4's: scaled_dot_product_attention(is_causal=True), which computes the
-    same function at softcap 0)."""
-    g = torch.Generator(device=dev).manual_seed(15)
+def k3_run_phase(dev, label, norm_in, variants, bw, seed, what="layer-0 input"):
+    """K3 on a run's own norm input ``norm_in`` = (x, w), x (B, S, d): with
+    its own weight and a random one, and at its last position (a decode
+    step's shape), each within one bf16 ulp of its plain version; the
+    variants taken at both shapes must be ``variants``; then both timed
+    beside the bound, the plain version and F.rms_norm."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     x, w0 = norm_in
     w = (torch.randn(w0.shape, generator=g, device=dev) * 0.1).to(w0.dtype)
     xd = x[:, -1:].contiguous()
-    k3_err = max(k3_compare(x, w0), k3_compare(x, w), k3_compare(xd, w))
-    check(norm_ops.variant(x, w) == "warp_per_row" and norm_ops.variant(xd, w) == "split_row",
-          "MoE path: K3 takes a warp per row in prefill and a split row in decode")
-    print(f"MoE K3 rms_norm within 1 bf16 ulp of its plain version on the run's layer-0 "
-          f"input {tuple(x.shape)} (zero-init and random weight) and its last position; "
-          f"max abs err {k3_err:.3e}")
-    k3_pre = k3_time(x, w, bw)
-    k3_dec = k3_time(xd, w, bw, n=200)
+    err = max(k3_compare(x, w0), k3_compare(x, w), k3_compare(xd, w))
+    taken = (norm_ops.variant(x, w), norm_ops.variant(xd, w))
+    check(taken == variants, f"{label}: K3 variants {taken}, expected {variants}")
+    print(f"{label} K3 rms_norm within 1 bf16 ulp of its plain version on the run's {what} "
+          f"{tuple(x.shape)} (its own and a random weight) and its last position; variants "
+          f"{taken[0]} / {taken[1]}; max abs err {err:.3e}")
+    return dict(err=err, shape=list(x.shape), variant=taken[0], decode_variant=taken[1],
+                prefill=k3_time(x, w, bw), decode=k3_time(xd, w, bw, n=200))
 
+
+def k4_run_phase(dev, label, cfg, qkv, bw, bf16_flops, seed):
+    """K4 at a run's shape with G = 1, no softcap or window: on N(0, 1)
+    inputs within one bf16 ulp of its plain version (one batch row at a
+    time); on the run's own q, k, v, where the init leaves the softmax
+    nearly a hard max, against attention in float64, missing it by more
+    than one ulp no more often than its plain version; then its time beside
+    its bound, the plain version and scaled_dot_product_attention
+    (is_causal=True), which computes the same function here."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = qkv
     kw = dict(causal=True, window=cfg.window_size, softcap=cfg.attn_logit_softcap)
-    check(kw == dict(causal=True, window=0, softcap=0.0), f"MoE path: K4 options {kw}")
+    check(kw == dict(causal=True, window=0, softcap=0.0), f"{label} path: K4 options {kw}")
     B, S, KV, G, hd = q.shape
     H = KV * G
     qs, ks, vs = (torch.randn(t.shape, generator=g, device=dev).to(t.dtype) for t in qkv)
-    k4_err = k4_compare_rows(qs, ks, vs, **kw)
+    err = k4_compare_rows(qs, ks, vs, **kw)
     del qs, ks, vs
-    print(f"MoE K4 flash_attention within 1 bf16 ulp of its plain version at the run's "
+    print(f"{label} K4 flash_attention within 1 bf16 ulp of its plain version at the run's "
           f"shape {tuple(q.shape)} on N(0, 1) inputs (one batch row at a time): max abs "
-          f"err {k4_err:.3e}")
+          f"err {err:.3e}")
     f64 = k4_against_float64(q, k, v)
-    print(f"MoE K4 on the run's layer-0 q, k, v (|q| up to {float(q.abs().max()):.1f}, |k| "
+    print(f"{label} K4 on the run's layer-0 q, k, v (|q| up to {float(q.abs().max()):.1f}, |k| "
           f"{float(k.abs().max()):.1f}, |v| {float(v.abs().max()):.1f}: the init's fan-in "
           f"of wq is its G axis, 1 here) against attention in float64: outputs more than "
           f"1 bf16 ulp (+1e-5) off: kernel {f64['kernel_beyond_f64']}, plain "
@@ -1608,7 +1684,7 @@ def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
           f"{f64['kernel_max_err_f64']:.3e}, plain {f64['plain_max_err_f64']:.3e}; kernel "
           f"more than 1 ulp from plain: {f64['kernel_beyond_plain']}")
     check(f64["kernel_beyond_f64"] <= f64["plain_beyond_f64"],
-          "MoE path: K4 misses the float64 attention more often than its plain version")
+          f"{label} path: K4 misses the float64 attention more often than its plain version")
     ms = device_ms(lambda: attn_ops.flash_attention(q, k, v, **kw), n=10, reps=5)
     plain_ms = device_ms(lambda: attn_ref.flash_attention_ref(q, k, v, **kw), n=1, reps=3)
     torch.cuda.empty_cache()
@@ -1619,7 +1695,7 @@ def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
     lib = sdpa(q4, k4, v4, is_causal=True).reshape(B, KV, G, S, hd).permute(0, 3, 1, 2, 4)
     sdpa_err = float((ours.float() - lib.float()).abs().max())
     check(sdpa_err <= 1e-2 * float(ours.float().abs().max()),
-          f"MoE K4 vs scaled_dot_product_attention: {sdpa_err}")
+          f"{label} K4 vs scaled_dot_product_attention: {sdpa_err}")
     library_ms = device_ms(lambda: sdpa(q4, k4, v4, is_causal=True), n=10, reps=5)
     del ours, lib, q4, k4, v4
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()  # q, o; k, v
@@ -1627,15 +1703,209 @@ def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
     bound_ms = 1e3 * max(nbytes / bw, flops / bf16_flops)
     sfu_ms = 1e3 * B * H * live_pairs(S, 0) / SFU_PER_S  # the softmax's exp
     tflops = flops / ms / 1e9
-    print(f"MoE K4 flash_attention {tuple(q.shape)} bf16, no softcap or window: kernel "
+    print(f"{label} K4 flash_attention {tuple(q.shape)} bf16, no softcap or window: kernel "
           f"{ms:.3f} ms, {tflops:.1f} TFLOP/s, {bound_ms / ms:.1%} of its bound "
           f"{bound_ms:.4f} ms ({flops / 1e12:.4f} TFLOP at {bf16_flops / 1e12:.0f} "
           f"TFLOP/s bf16; one exp per live score {sfu_ms:.4f} ms); plain {plain_ms:.3f} "
           f"ms; scaled_dot_product_attention(is_causal=True) {library_ms:.3f} ms "
           f"(kernel/SDPA {ms / library_ms:.2f}x; max abs diff {sdpa_err:.3e})")
-    return dict(k3_err=k3_err, k3=k3_pre, k3_decode=k3_dec, k4_err=k4_err, k4_f64=f64, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                transcendental_ms=sfu_ms, tflops=tflops, shape=list(q.shape))
+    return dict(k4_err=err, k4_f64=f64, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, transcendental_ms=sfu_ms, tflops=tflops,
+                shape=list(q.shape))
+
+
+def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
+    """K3 and K4 on the MoE run's layer-0 inputs: K3 at the prefill's and a
+    decode step's shape, K4 at (2, 8000, 16, 1, 128) without softcap or
+    window (`k3_run_phase`, `k4_run_phase`)."""
+    k3 = k3_run_phase(dev, "MoE", norm_in, ("warp_per_row", "split_row"), bw, 15)
+    k4 = k4_run_phase(dev, "MoE", cfg, qkv, bw, bf16_flops, 15)
+    return dict(k3_err=k3["err"], k3=k3["prefill"], k3_decode=k3["decode"], **k4)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent serving paths: Zamba2-7B (Mamba2 blocks and a shared
+# attention block) and RWKV6-3B
+# ---------------------------------------------------------------------------
+
+# The prefill's hand-off to decode, held in relative L2 norm at the last
+# position (PERF.md §6): each of group 0's blocks' contribution
+# (its output minus its input) decoded from the prefill's caches against
+# the same block over all S + 1 positions, on the run's own inputs, in
+# bf16 and, for Zamba2, in float32; and the logits of the first decode
+# step after the prefill against `forward`'s last logits over the same
+# S + 1 tokens, for RWKV6 (in bf16). Zamba2's logits are printed, not
+# held: its random init's shared attention (32 heads of 112 with G = 1,
+# so `wq` is unscaled: |q| up to ~330) is nearly a hard max, and any
+# difference between two evaluations grows group by group, so that the
+# logits differ by ~0.75 in relative norm in float32 too, while every
+# block hands off within a few 1e-6 there.
+HANDOFF_BLOCK_BOUND = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+HANDOFF_LOGITS_BOUND = 5e-2
+
+
+def rel_norm(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+@torch.no_grad()
+def handoff_check(cfg, params, prompt, label, hold_logits: bool) -> dict:
+    """The prefill's recurrent states (and the shared block's K/V) handed
+    to decode, on the card at the run's own size: (1) the logits of the
+    first decode step (position S) after the prefill against the last
+    logits of `forward` over the same S + 1 tokens; (2) group 0's blocks
+    one by one on the run's own inputs: each block's prefill over S
+    positions with ``want_cache``, then its decode of position S, against
+    the block over all S + 1 positions, in the block's contribution at
+    position S."""
+    model = build_model(cfg)
+    B, S = prompt.shape
+    logits, caches = make_prefill_step(model, S + 1)(params, {"tokens": prompt})
+    tok = torch.argmax(logits, dim=-1).to(prompt.dtype)
+    _, caches, dec = make_serve_step(model)(params, caches, {"tokens": tok, "pos": S})
+    del caches, logits
+    tokens = torch.cat([prompt, tok], dim=1)
+    full, _ = model.forward(params, tokens)
+    want = full[:, -1:].clone()
+    del full
+    out = {"logits": rel_norm(dec, want),
+           "argmax_equal": bool(torch.equal(dec.argmax(-1), want.argmax(-1)))}
+    del dec, want
+    torch.cuda.empty_cache()
+
+    pos = torch.arange(S + 1, device=prompt.device).expand(B, S + 1)
+    x = embed_apply(cfg, params["embed"], tokens, pos)
+    gp = tfm.group_params(params, 0)
+    blocks = {}
+    shared = params.get("shared_attn")
+
+    def split(x):  # the prompt's positions and the decoded one, contiguous
+        return x[:, :S].contiguous(), x[:, S:].contiguous()
+
+    if shared is not None:
+        y, _ = tfm._shared_attn_apply(cfg, shared, x, pos)
+        head, last = split(x)
+        _, (k, v) = tfm._shared_attn_apply(cfg, shared, head, pos[:, :S])
+        kv = {n: torch.zeros((B, S + 1) + t.shape[2:], dtype=t.dtype, device=t.device)
+              for n, t in (("k", k), ("v", v))}
+        kv["k"][:, :S], kv["v"][:, :S] = k, v
+        d = tfm._shared_attn_decode(cfg, shared, last, kv, S)
+        blocks["shared"] = rel_norm(d[:, 0] - x[:, S], y[:, S] - x[:, S])
+        del k, v, kv
+        x = y
+    for i, kind in enumerate(cfg.pattern):
+        check(kind in tfm.RECURRENT_KINDS, f"{label}: hand-off of block kind {kind}")
+        p = gp[f"b{i}"]
+        y, _, _ = tfm.block_apply(cfg, kind, p, x, positions=pos)
+        head, last = split(x)
+        _, _, c = tfm.block_apply(cfg, kind, p, head, positions=pos[:, :S], want_cache=True)
+        d, _ = tfm.block_decode(cfg, kind, p, last, c, S)
+        blocks[f"b{i}"] = rel_norm(d[:, 0] - x[:, S], y[:, S] - x[:, S])
+        x = y
+    del x, y
+    torch.cuda.empty_cache()
+    out["blocks"] = blocks
+    bound = HANDOFF_BLOCK_BOUND[cfg.cdtype]
+    print(f"{label} hand-off, prefill of {S} then decode of position {S}, against the full "
+          f"sequence of {S + 1} (relative L2 norm, {cfg.compute_dtype}): logits "
+          f"{out['logits']:.4e} (argmax equal: {out['argmax_equal']}; held to "
+          f"{HANDOFF_LOGITS_BOUND}: {hold_logits}); group 0's blocks' contributions "
+          f"{json.dumps({k: float(f'{v:.4g}') for k, v in blocks.items()})} (held to {bound})")
+    check(all(v <= bound for v in blocks.values()),
+          f"{label}: a block's prefill-to-decode hand-off off by more than {bound}: {blocks}")
+    if hold_logits:
+        check(out["logits"] <= HANDOFF_LOGITS_BOUND,
+              f"{label}: decode logits after the prefill off forward's by {out['logits']}")
+    return out
+
+
+def first_norm_input(module, fn):
+    """The first (x, w) that ``fn()`` hands to ``module.rms_norm``: a
+    block's inner norm input, recomputed from the run's data."""
+    seen = []
+    orig = module.rms_norm
+
+    def record(x, w, eps=1e-6):
+        if not seen:
+            seen.append((x, w))
+        return orig(x, w, eps)
+
+    module.rms_norm = record
+    try:
+        fn()
+    finally:
+        module.rms_norm = orig
+    return seen[0]
+
+
+def hybrid_layer_inputs(cfg, params, prompt):
+    """The hybrid run's own data for K3 and K4, recomputed from the prompt:
+    the shared block's q, k, v (the first thing group 0 runs), and group
+    0's first Mamba2 inner norm input (B, S, d_inner)."""
+    B, S = prompt.shape
+    positions = torch.arange(S, device=prompt.device).expand(B, S)
+    x = embed_apply(cfg, params["embed"], prompt, positions)
+    shared = params["shared_attn"]
+    qkv = _proj_qkv(cfg, shared["attn"], apply_norm(cfg, x, shared["ln1"]),
+                    positions=positions)
+    h, _ = tfm._shared_attn_apply(cfg, shared, x, positions)
+    b0 = tfm.group_params(params, 0)["b0"]
+    inner = first_norm_input(mamba2, lambda: tfm.block_apply(cfg, "mamba", b0, h,
+                                                             positions=positions))
+    return inner, qkv
+
+
+def recurrent_layer_inputs(cfg, params, prompt):
+    """The recurrent run's own data for K3: layer 0's ln_x input (B, S,
+    d_model), from its time-mix over the LayerNorm of the embeddings."""
+    B, S = prompt.shape
+    positions = torch.arange(S, device=prompt.device).expand(B, S)
+    x = embed_apply(cfg, params["embed"], prompt, positions)
+    b0 = tfm.group_params(params, 0)["b0"]
+    h = apply_norm(cfg, x, b0["ln1"])
+    return first_norm_input(rwkv6, lambda: rwkv6.rwkv6_time_mix(cfg, b0["rwkv"]["tm"], h))
+
+
+def free_weights(label, cfg, held: int) -> None:
+    """After the caller dropped a path's weights: the allocated memory must
+    have fallen by their size at least."""
+    torch.cuda.empty_cache()
+    freed = torch.cuda.memory_allocated()
+    nbytes = build_model(cfg).num_params() * cfg.pdtype.itemsize
+    print(f"{label}: device memory allocated {held:,} bytes with {cfg.name}'s weights, "
+          f"{freed:,} after freeing them ({nbytes:,} bytes of weights)")
+    check(held - freed >= nbytes, f"{cfg.name}'s weights freed ({label})")
+
+
+def float32_handoff(dev, path_inputs, label) -> dict:
+    """`handoff_check` on the path's weights before their rounding to bf16
+    (the same draws from the same seed, and the same prompt), in float32:
+    K4 takes its float32 route and K3 reads float32 rows."""
+    cfg, params, prompt = path_inputs(dev, param_dtype="float32", compute_dtype="float32")
+    out = handoff_check(cfg, params, prompt, f"{label} (float32 weights)", hold_logits=False)
+    del params, prompt
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_path(dev, path_inputs, n_decode, label, hold_logits):
+    """One recurrent path end to end (`llm_path`), its hand-off check, and
+    the run's own inputs for the kernel phases (the inner norm's; the
+    shared attention's q, k, v where there is one); the weights are
+    dropped, and checked freed, before it returns."""
+    cfg, params, prompt, r, cold, launches, peak = llm_path(dev, path_inputs, n_decode, label)
+    handoff = handoff_check(cfg, params, prompt, label, hold_logits)
+    if cfg.shared_attn:
+        norm_in, qkv = hybrid_layer_inputs(cfg, params, prompt)
+    else:
+        norm_in, qkv = recurrent_layer_inputs(cfg, params, prompt), None
+    norm_in = (norm_in[0], norm_in[1].clone())  # its weight outlives the params
+    held = torch.cuda.memory_allocated()
+    del params, prompt
+    free_weights(f"after the {label} path", cfg, held)
+    return dict(cfg=cfg, run=r, cold=cold, launches=launches, peak=peak, handoff=handoff,
+                norm_in=norm_in, qkv=qkv)
 
 
 T_START = time.perf_counter()
@@ -1730,7 +2000,31 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe_s = time.perf_counter() - t_moe
 
-    # 9. kernels line
+    # 9. the hybrid path (Zamba2-7B), once Moonlight's weights are gone;
+    # then K3 on its Mamba2 inner norm input and K4 at head dim 112
+    t_hyb = time.perf_counter()
+    hyb = recurrent_path(dev, hybrid_path_inputs, HYBRID_DECODE, "Hybrid", hold_logits=False)
+    hyb_shares = analytic_shares(hyb["cfg"], hyb["run"], HYBRID_BATCH, HYBRID_PROMPT,
+                                 HYBRID_DECODE, "Hybrid")
+    hk3 = k3_run_phase(dev, "Hybrid", hyb.pop("norm_in"), ("split_row", "split_row"), bw, 16,
+                       what="Mamba2 inner norm input")
+    hk4 = k4_run_phase(dev, "Hybrid", hyb["cfg"], hyb.pop("qkv"), bw, bf16_flops, 16)
+    torch.cuda.empty_cache()
+    hyb["handoff_float32"] = float32_handoff(dev, hybrid_path_inputs, "Hybrid")
+    hyb_s = time.perf_counter() - t_hyb
+
+    # 10. the recurrent path (RWKV6-3B); then K3 on its ln_x input
+    t_rec = time.perf_counter()
+    rec = recurrent_path(dev, recurrent_path_inputs, RECURRENT_DECODE, "Recurrent",
+                         hold_logits=True)
+    rec_shares = analytic_shares(rec["cfg"], rec["run"], RECURRENT_BATCH, RECURRENT_PROMPT,
+                                 RECURRENT_DECODE, "Recurrent")
+    rk3 = k3_run_phase(dev, "Recurrent", rec.pop("norm_in"), ("warp_per_row", "split_row"), bw,
+                       17, what="RWKV6 ln_x input")
+    torch.cuda.empty_cache()
+    rec_s = time.perf_counter() - t_rec
+
+    # 11. kernels line
     kernels = [
         dict(name="masked_adam_3d", route="cuda",
              source="src/repro_torch/csrc/masked_adam.cu",
@@ -1765,7 +2059,7 @@ def main() -> None:
         dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:25",
              launches=llm_launches["rms_norm"], moe_launches=moe_launches["rms_norm"],
-             max_abs_err=max(k3["err"], mk["k3_err"]), ms=k3["ms"],
+             max_abs_err=max(k3["err"], mk["k3_err"], hk3["err"], rk3["err"]), ms=k3["ms"],
              call_ms=k3["call_ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by="bytes", library_ms=k3["library_ms"],
              library_call="torch.nn.functional.rms_norm(x, (d,), weight=1+w, eps=1e-6)",
@@ -1774,7 +2068,15 @@ def main() -> None:
              decode_plain_ms=k3["decode_plain_ms"], decode_bound_ms=k3["decode_bound_ms"],
              decode_library_ms=k3["decode_library_ms"],
              **{f"moe_{k}": v for k, v in mk["k3"].items()},
-             **{f"moe_decode_{k}": v for k, v in mk["k3_decode"].items()}),
+             **{f"moe_decode_{k}": v for k, v in mk["k3_decode"].items()},
+             hybrid_launches=hyb["launches"]["rms_norm"],
+             recurrent_launches=rec["launches"]["rms_norm"],
+             **{f"{name}_{k}": v for name, r in (("d7168", hk3), ("d2560", rk3))
+                for k, v in (dict(shape=r["shape"], variant=r["variant"],
+                                  decode_variant=r["decode_variant"], err=r["err"],
+                                  **r["prefill"],
+                                  **{f"decode_{kk}": vv for kk, vv in r["decode"].items()})
+                             ).items()}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:89",
@@ -1782,7 +2084,9 @@ def main() -> None:
              launches_by_route=llm_launches["flash_attention_by_route"],
              moe_launches=moe_launches["flash_attention"],
              moe_launches_by_route=moe_launches["flash_attention_by_route"],
-             max_abs_err=max(k4["err"], mk["k4_err"]),
+             hybrid_launches=hyb["launches"]["flash_attention"],
+             hybrid_launches_by_route=hyb["launches"]["flash_attention_by_route"],
+             max_abs_err=max(k4["err"], mk["k4_err"], hk4["k4_err"]),
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by="operations", library_ms=k4["library_ms"],
              library_call="scaled_dot_product_attention(is_causal=True, "
@@ -1796,6 +2100,10 @@ def main() -> None:
              hd128_bound_ms=mk["bound_ms"], hd128_library_ms=mk["library_ms"],
              hd128_transcendental_ms=mk["transcendental_ms"], hd128_tflops=mk["tflops"],
              hd128_against_float64=mk["k4_f64"],
+             hd112_shape=hk4["shape"], hd112_ms=hk4["ms"], hd112_plain_ms=hk4["plain_ms"],
+             hd112_bound_ms=hk4["bound_ms"], hd112_library_ms=hk4["library_ms"],
+             hd112_transcendental_ms=hk4["transcendental_ms"], hd112_tflops=hk4["tflops"],
+             hd112_against_float64=hk4["k4_f64"],
              sass=sass),
     ]
     print(f"AMS summary: eager iteration busy share {trace['busy_share']:.3f} "
@@ -1820,7 +2128,25 @@ def main() -> None:
           f"(cold {moe_cold['decode_ms_per_token']:.3f}), peak {moe_peak:,} bytes; K4 at "
           f"{tuple(mk['shape'])} {mk['ms']:.3f} ms (SDPA {mk['library_ms']:.3f}, bound "
           f"{mk['bound_ms']:.4f}); the MoE phase took {moe_s:.1f} s")
-    print("ANALYTIC_SHARES " + json.dumps({cfg.name: llm_shares, mcfg.name: moe_shares}))
+    for label, r, secs, extra in (("Hybrid", hyb, hyb_s, f"; K4 at {tuple(hk4['shape'])} "
+                                   f"{hk4['ms']:.3f} ms (SDPA {hk4['library_ms']:.3f}, bound "
+                                   f"{hk4['bound_ms']:.4f}); K3 at {tuple(hk3['shape'])} "
+                                   f"{hk3['prefill']['ms']:.4f} ms"),
+                                  ("Recurrent", rec, rec_s, f"; K3 at {tuple(rk3['shape'])} "
+                                   f"{rk3['prefill']['ms']:.4f} ms")):
+        print(f"{label} summary: {r['cfg'].name} prefill {r['run']['prefill_ms']:.1f} ms "
+              f"(cold {r['cold']['prefill_ms']:.1f}), decode "
+              f"{r['run']['decode_ms_per_token']:.3f} ms/token (cold "
+              f"{r['cold']['decode_ms_per_token']:.3f}), peak {r['peak']:,} bytes; hand-off "
+              f"logits {r['handoff']['logits']:.4e}, blocks "
+              f"{max(r['handoff']['blocks'].values()):.4e} at most{extra}; the phase took "
+              f"{secs:.1f} s")
+    print("HANDOFF " + json.dumps({hyb["cfg"].name: hyb["handoff"],
+                                   f"{hyb['cfg'].name} float32": hyb["handoff_float32"],
+                                   rec["cfg"].name: rec["handoff"]}))
+    print("ANALYTIC_SHARES " + json.dumps({cfg.name: llm_shares, mcfg.name: moe_shares,
+                                           hyb["cfg"].name: hyb_shares,
+                                           rec["cfg"].name: rec_shares}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,12 +3,14 @@
 
     PYTHONPATH=src python3 scripts/profile_llm_serve.py
 
-The two full-size paths of `repro_torch.launch.serve`, one after the
-other: the main path (`main_path_inputs`, `MAIN_DECODE`: Gemma-2 9B) and
-the MoE path (`moe_path_inputs`, `MOE_DECODE`: Moonlight-16B-A3B), each
-at full width and depth with random bf16 weights drawn on the card from
-seed 0, a batch of 2 random prompts of 8,000 tokens, one prefill into a
-cache of 8,064 positions, then 64 greedy decode steps, through
+The four full-size paths of `repro_torch.launch.serve`, one after the
+other: the main path (`main_path_inputs`, `MAIN_DECODE`: Gemma-2 9B),
+the MoE path (`moe_path_inputs`, `MOE_DECODE`: Moonlight-16B-A3B), the
+hybrid path (`hybrid_path_inputs`, `HYBRID_DECODE`: Zamba2-7B) and the
+recurrent path (`recurrent_path_inputs`, `RECURRENT_DECODE`: RWKV6-3B),
+each at full width and depth with random bf16 weights drawn on the card
+from seed 0, a batch of 2 random prompts of 8,000 tokens, one prefill
+into a cache of 8,064 positions, then 64 greedy decode steps, through
 `make_prefill_step` and `make_serve_step`. A path's weights are freed
 before the next is drawn. The prefill and the decode steps are each run
 once untraced as a warm-up and once more untraced for their wall times,
@@ -19,8 +21,13 @@ device time summed over kernels, their ratio (the device's busy share;
 kernels do not overlap on one stream), the number of kernel launches,
 the device time grouped into the port's own kernels, matrix products
 (cuBLAS), copies and casts, indexing (the MoE dispatch's gathers and
-scatters), and the rest, and the kernels with the most device time. It
-needs a card and exits non-zero without one.
+scatters), and the rest, and the kernels with the most device time. For
+the recurrent paths it also runs the prefill and the decode steps once
+more untraced, with CUDA events around every call of the scans (the
+Mamba2 SSD chunk loop and its one-token step, the RWKV6 wkv chunk loop
+and its step), and prints the scans' share of each phase on the device's
+clock (their launches' waits for the host included). It needs a card and
+exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -35,10 +42,14 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from repro_torch.launch.serve import (MAIN_DECODE, MOE_DECODE, main_path_inputs,  # noqa: E402
-                                      moe_path_inputs)
+from repro_torch.launch.serve import (HYBRID_DECODE, MAIN_DECODE,  # noqa: E402
+                                      MOE_DECODE, RECURRENT_DECODE,
+                                      hybrid_path_inputs, main_path_inputs,
+                                      moe_path_inputs, recurrent_path_inputs)
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models.registry import build  # noqa: E402
+from repro_torch.models.ssm import mamba2, rwkv6  # noqa: E402
+from repro_torch.models.transformer import RECURRENT_KINDS  # noqa: E402
 
 TOP = 15  # kernels listed per phase
 
@@ -90,6 +101,44 @@ def report(label: str, prof, wall_ms: float, steps: int = 1):
         print(f"    {t / 1e3 / steps:10.3f} ms  {c / steps:8.1f}x  {name[:110]}")
 
 
+class ScanClock:
+    """CUDA events around every call of the recurrent blocks' scans while
+    inside the ``with``; `ms` sums them (device clock)."""
+
+    SCANS = ((mamba2, "_ssd_chunked"), (mamba2, "_ssd_step"),
+             (rwkv6, "_wkv_chunked"), (rwkv6, "_wkv_step"))
+
+    def __init__(self):
+        self.pairs = []
+
+    def _wrap(self, fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.SCANS]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        total = sum(a.elapsed_time(b) for a, b in self.pairs)
+        self.pairs.clear()
+        return total
+
+
 def profile_path(path_inputs, n_decode: int):
     dev = torch.device("cuda", 0)
     cfg, params, prompt = path_inputs(dev)
@@ -121,6 +170,17 @@ def profile_path(path_inputs, n_decode: int):
         del logits, caches
         print(f"{run}: prefill {pre_ms:.1f} ms, decode {dec_ms / n_decode:.2f} "
               f"ms per step (host clock around synchronised calls)")
+    if any(kind in RECURRENT_KINDS for kind in cfg.pattern):
+        with ScanClock() as clock:
+            (logits, caches), pre_ms = timed(prefill)
+            pre_scan = clock.ms()
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            _, dec_ms = timed(decode, caches, tok)
+            dec_scan = clock.ms()
+        del logits, caches
+        print(f"scans (CUDA events around each call): prefill {pre_scan:.1f} of "
+              f"{pre_ms:.1f} ms ({pre_scan / pre_ms:.1%}), decode {dec_scan / n_decode:.2f} of "
+              f"{dec_ms / n_decode:.2f} ms per step ({dec_scan / dec_ms:.1%})")
     acts = [ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         (logits, caches), wall = timed(prefill)
@@ -139,7 +199,9 @@ def main():
         capture_output=True, text=True, check=True, timeout=60).stdout
     print(smi.strip().splitlines()[0])
     for path_inputs, n_decode in ((main_path_inputs, MAIN_DECODE),
-                                  (moe_path_inputs, MOE_DECODE)):
+                                  (moe_path_inputs, MOE_DECODE),
+                                  (hybrid_path_inputs, HYBRID_DECODE),
+                                  (recurrent_path_inputs, RECURRENT_DECODE)):
         profile_path(path_inputs, n_decode)
         torch.cuda.empty_cache()
 

@@ -4,11 +4,12 @@ package's `configs/__init__.py`.
 Each ported architecture has a module exporting ``full()`` (the exact
 published config) and ``smoke()`` (a reduced same-family variant used by
 CPU tests), copied from the JAX package. ``ALIASES`` keeps the JAX
-package's external spellings. The dense and MoE architectures are ported
-(Llama 3 405B, Mixtral 8x22B and Llama-4 Maverick do not fit one card at
-full size; their smoke configs run on the CPU); the others need modules
-the port does not have yet (ROADMAP §1 item 7), and asking for one raises
-``NotImplementedError``.
+package's external spellings. The dense, MoE, hybrid (Zamba2: Mamba2
+and a shared attention block) and RWKV6 architectures are ported (Llama
+3 405B, Mixtral 8x22B and Llama-4 Maverick do not fit one card at full
+size; their smoke configs run on the CPU); the others need
+cross-attention and the encoder, which the port does not have yet
+(ROADMAP §1 item 7), and asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ ARCH_IDS = (
     "mixtral_8x22b",
     "llama3_405b",
     "llama4_maverick_400b_a17b",
+    "zamba2_7b",
+    "rwkv6_3b",
 )
 
 # external spelling (--arch flag) -> module name
@@ -46,7 +49,7 @@ def _module(name: str):
     if name not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ROADMAP §1 item 7: "
-            f"Mamba2, RWKV6, cross-attention and the encoder); ported: "
+            f"cross-attention and the encoder); ported: "
             f"{', '.join(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

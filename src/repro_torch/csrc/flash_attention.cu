@@ -84,6 +84,16 @@
 // * Epilogue: each warpgroup divides by max(l, 1e-30), rounds to bf16 into
 //   its own 64 rows of the Q tile in shared memory (same swizzle) and
 //   stores them with TMA, which skips rows >= S.
+// * Head dim 112 (Zamba2-7B's shared attention, 3584 / 32) runs the hd 128
+//   instantiation over tensor maps whose inner extent is 112: the second
+//   64-column box of each row reads columns 64..127, and TMA fills 112..127
+//   with zeros (the full box still counts in the barrier's bytes, as for
+//   the rows past S) and drops them on the store. The zero columns add
+//   exactly 0 to every S k-step sum and give zero O columns, so the result
+//   is the 112-wide function, at 8/7 of its tensor work; the scale
+//   112^-0.5 comes from the host. 112 is not a multiple of the 64-column
+//   (128-byte) boxes that the swizzle and the descriptors assume, which a
+//   native instantiation would need a layout of its own for.
 //
 // Tried and dropped: FlashAttention-3's ping-pong, the warpgroups taking
 // turns on the tensor cores at named barriers (no faster here), and
@@ -623,7 +633,9 @@ cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
 // share it (shuffles), and P goes through shared memory into P.V. The
 // 64 x hd accumulator lives in registers, 4 rows x hd/16 columns per
 // thread. Shared memory is (2*64*(hd+4) + 64*hd + 64*80) floats, 219 KB at
-// hd 256. Ragged ends load zeros and are masked or not stored.
+// hd 256. Ragged ends load zeros and are masked or not stored. At hd 112
+// a thread's second group of output columns is live only for its first 12
+// lanes of a row (columns 64 + 4tx < 112).
 
 constexpr int kBQ = 64;  // q rows per block
 constexpr int kThreads = 256;
@@ -685,7 +697,7 @@ __device__ __forceinline__ float comp(const float4& a, int u) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(Params p) {
   using L = Layout<HD>;
-  constexpr int kNJ = HD / 64;  // float4 column groups per thread
+  constexpr int kNJ = (HD + 63) / 64;  // float4 column groups per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Qs = smem + L::kQ;
@@ -707,6 +719,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(Params p) {
   // thread (ty, tx): q rows ty + 16i and, per tile, kv columns tx + 16j
   // (i, j < 4); output columns 4tx + 64jj .. +3 (jj < kNJ)
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  // column group jj of this thread lies inside the row (always, unless
+  // HD is not a multiple of 64)
+  auto col_live = [&](int jj) { return HD % 64 == 0 || 64 * jj + 4 * tx < HD; };
   float acc[4][kNJ][4];
   float m[4], l[4];
 #pragma unroll
@@ -815,6 +830,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(Params p) {
         const float* vrow = Vs + (kk + u) * HD + 4 * tx;
 #pragma unroll
         for (int jj = 0; jj < kNJ; ++jj) {
+          if (!col_live(jj)) continue;
           const float4 vv = *reinterpret_cast<const float4*>(vrow + 64 * jj);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -836,6 +852,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(Params p) {
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < kNJ; ++jj) {
+      if (!col_live(jj)) continue;
       float4 x;
       x.x = __fdiv_rn(acc[i][jj][0], denom);
       x.y = __fdiv_rn(acc[i][jj][1], denom);
@@ -866,12 +883,13 @@ extern "C" {
 // Both entry points take q, o: (B, Sq, KV, G, hd); k, v: (B, Skv, KV, hd),
 // device pointers, 16-byte aligned, the last axis contiguous. `strides`
 // holds 14 element strides: q's (b, s, kv, g), k's (b, s, kv), v's (b, s,
-// kv), o's (b, s, kv, g); each a multiple of 16 bytes. hd is 64, 128 or
-// 256. They launch on `stream` of CUDA device `device` and return the
+// kv), o's (b, s, kv, g); each a multiple of 16 bytes. hd is 64, 112, 128
+// or 256. They launch on `stream` of CUDA device `device` and return the
 // launch's cudaError_t (0 on success).
 
 // bfloat16 tensors: the tensor-core kernel. Its tensor maps are encoded
-// here at every call.
+// here at every call, over the real head dim; hd 112 runs the hd 128
+// instantiation (see the note at the top).
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                              int hd, int B, int Sq, int Skv, int KV, int G,
                              const long long* strides, int causal, int window,
@@ -879,7 +897,7 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Sq == 0 || B == 0) return 0;
-  if (hd != 64 && hd != 128 && hd != 256) return cudaErrorInvalidValue;
+  if (hd != 64 && hd != 112 && hd != 128 && hd != 256) return cudaErrorInvalidValue;
   const long long* st = strides;
   const long long q_dims[5] = {hd, G, KV, Sq, B};
   const long long q_str[4] = {st[3], st[2], st[1], st[0]};
@@ -909,6 +927,7 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: err = launch_wgmma<64>(tq, tk, tv, to, p, B, s); break;
+    case 112:  // zero-filled to 128 by TMA
     case 128: err = launch_wgmma<128>(tq, tk, tv, to, p, B, s); break;
     default: err = launch_wgmma<256>(tq, tk, tv, to, p, B, s); break;
   }
@@ -934,6 +953,7 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: err = launch_f32<64>(p, B, KV * G, s); break;
+    case 112: err = launch_f32<112>(p, B, KV * G, s); break;
     case 128: err = launch_f32<128>(p, B, KV * G, s); break;
     case 256: err = launch_f32<256>(p, B, KV * G, s); break;
     default: err = cudaErrorInvalidValue;

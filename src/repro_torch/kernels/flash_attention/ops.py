@@ -14,6 +14,7 @@ to another:
 
 Both kernels read q, k and v through their strides, so the model's
 projections go in without a transpose, and write a contiguous output.
+They take head dims 64, 112 (Zamba2-7B's), 128 and 256 (`HEAD_DIMS`).
 
 ``launches`` counts kernel launches of both routes (plain-version calls do
 not count); ``launches_by_route`` counts them per route.
@@ -33,7 +34,10 @@ ROUTES = {torch.bfloat16: ("bf16_wgmma", "flash_attention_fwd_bf16"),
           torch.float32: ("f32_cuda_cores", "flash_attention_fwd_f32")}
 launches_by_route = {name: 0 for name, _ in ROUTES.values()}
 
-HEAD_DIMS = (64, 128, 256)  # the kernels' instantiations
+# the head dims the kernels take: instantiations of both routes, but the
+# bf16 route runs 112 as its 128 instantiation over 112-wide tensor maps
+# (TMA zero-fills columns 112..127 and drops them on the store)
+HEAD_DIMS = (64, 112, 128, 256)
 TMA_Q_ROWS = 128            # q rows per block of the bf16 kernel
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.POINTER(ctypes.c_longlong)]

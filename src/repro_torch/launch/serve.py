@@ -5,11 +5,15 @@ against the KV cache (the JAX package's `launch/serve.py`).
         --batch 2 --prompt-len 16 --tokens 8 --device cpu
 
 runs a smoke config on the CPU (``--arch moonshot-v1-16b-a3b`` for the
-MoE one); without ``--device`` it runs on the card. `serve` is the
-function behind it. The two full-size paths, which `chip_smoke.py` drives
-and `scripts/profile_llm_serve.py` profiles, are defined once here: `MAIN_ARCH` (dense) and `MOE_ARCH` at full width and depth, each
-with its batch of prompts and decode steps (`main_path_inputs`,
-`moe_path_inputs`).
+MoE one, ``zamba2-7b`` for the Mamba2 hybrid, ``rwkv6-3b`` for RWKV6);
+without ``--device`` it runs on the card. `serve` is the function behind
+it: it prefills, then decodes against the KV and recurrent-state caches.
+The four full-size paths, which `chip_smoke.py` drives and
+`scripts/profile_llm_serve.py` profiles, are defined once here:
+`MAIN_ARCH` (dense), `MOE_ARCH`, `HYBRID_ARCH` and `RECURRENT_ARCH` at
+full width and depth, each with its batch of prompts and decode steps
+(`main_path_inputs`, `moe_path_inputs`, `hybrid_path_inputs`,
+`recurrent_path_inputs`).
 """
 from __future__ import annotations
 
@@ -41,10 +45,26 @@ MAIN_BATCH, MAIN_PROMPT, MAIN_DECODE = 2, 8000, 64
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_BATCH, MOE_PROMPT, MOE_DECODE = 2, 8000, 64
 
+# The hybrid path: Zamba2-7B's published config (81 Mamba2 layers in 27
+# groups of 3, one shared attention + SwiGLU block before each group, 32
+# heads of 112; 6,635,851,856 parameters, 13.3 GB in bf16) with random
+# bf16 weights, the same prompts and decode steps. Its caches at 2 x 8,064
+# positions: the shared block's K/V for 27 groups (6.2 GB in bf16) and
+# float32 SSM states.
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_DECODE = 2, 8000, 64
 
-def _path_inputs(arch: str, batch: int, prompt_len: int, device):
+# The recurrent path: RWKV6-3B's published config (32 layers, d_model
+# 2,560, 40 wkv heads of 64; 2,690,501,120 parameters, 5.4 GB in bf16)
+# with random bf16 weights, the same prompts and decode steps. Its cache is
+# float32 wkv states and the last normed inputs, whatever the prompt.
+RECURRENT_ARCH = "rwkv6-3b"
+RECURRENT_BATCH, RECURRENT_PROMPT, RECURRENT_DECODE = 2, 8000, 64
+
+
+def _path_inputs(arch: str, batch: int, prompt_len: int, device, **overrides):
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = get_config(arch, **overrides)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = build(cfg).init(gen, dev)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
@@ -64,6 +84,23 @@ def moe_path_inputs(device="cuda"):
     its bf16 weights drawn on ``device`` from a generator seeded with 0,
     and (MOE_BATCH, MOE_PROMPT) random token ids from the same generator."""
     return _path_inputs(MOE_ARCH, MOE_BATCH, MOE_PROMPT, device)
+
+
+def hybrid_path_inputs(device="cuda", **overrides):
+    """``(cfg, params, prompt)`` of the hybrid path: `HYBRID_ARCH`'s full
+    config, its bf16 weights drawn on ``device`` from a generator seeded
+    with 0, and (HYBRID_BATCH, HYBRID_PROMPT) random token ids from the
+    same generator. ``overrides`` change config fields: with
+    ``param_dtype="float32"`` the weights are the same draws, unrounded."""
+    return _path_inputs(HYBRID_ARCH, HYBRID_BATCH, HYBRID_PROMPT, device, **overrides)
+
+
+def recurrent_path_inputs(device="cuda"):
+    """``(cfg, params, prompt)`` of the recurrent path: `RECURRENT_ARCH`'s
+    full config, its bf16 weights drawn on ``device`` from a generator
+    seeded with 0, and (RECURRENT_BATCH, RECURRENT_PROMPT) random token ids
+    from the same generator."""
+    return _path_inputs(RECURRENT_ARCH, RECURRENT_BATCH, RECURRENT_PROMPT, device)
 
 
 class _Clock:
@@ -101,7 +138,8 @@ def _diff(after: dict, before: dict) -> dict:
 def serve(cfg: ModelConfig, params: dict, prompt: torch.Tensor, n_tokens: int,
           device="cuda") -> dict:
     """Prefill ``prompt`` (B, S) and take ``n_tokens`` greedy decode steps
-    against a cache of ``S + n_tokens`` positions.
+    against a cache of ``S + n_tokens`` positions (and the recurrent
+    blocks' states, which the prefill hands over).
 
     Returns a dict: ``tokens`` (B, n_tokens + 1) int32 on the host (the
     prefill's token, then one per decode step); ``finite`` (every logit of

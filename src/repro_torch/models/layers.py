@@ -19,13 +19,19 @@ from repro_torch.models.common import ModelConfig, ParamMeta, dense_meta
 # ---------------------------------------------------------------------------
 
 
-def _check_ported(cfg: ModelConfig):
-    """The ported configs use RoPE and the gated MLPs (GeGLU, SwiGLU);
-    learned or sinusoidal positions and the plain-gelu MLP wait for the
-    architectures that use them (cross-attention and the encoder)."""
+def _check_pos(cfg: ModelConfig):
+    """The ported configs use RoPE or no positions; learned and sinusoidal
+    positions wait for the architectures that use them (cross-attention
+    and the encoder)."""
     if cfg.pos not in ("rope", "none"):
         raise NotImplementedError(
             f"pos={cfg.pos!r} is not ported yet (ROADMAP §1 item 7)")
+
+
+def _check_mlp(cfg: ModelConfig):
+    """An MLP of the ported configs is gated (GeGLU, SwiGLU); the
+    plain-gelu MLP waits for the encoder. Checked where an MLP is built,
+    so a config that names gelu but builds no MLP (RWKV6) runs."""
     if cfg.mlp_act not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp_act={cfg.mlp_act!r} is not ported yet (ROADMAP §1 item 7)")
@@ -90,7 +96,7 @@ def softcap(x, cap: float):
 
 def mlp_metas(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d, ff = cfg.d_model, (d_ff or cfg.d_ff)
-    _check_ported(cfg)
+    _check_mlp(cfg)
     return {"wg": dense_meta(d, ff), "wu": dense_meta(d, ff), "wd": dense_meta(ff, d)}
 
 
@@ -102,7 +108,7 @@ def glu_act(cfg: ModelConfig, g):
 
 def mlp_apply(cfg: ModelConfig, p: dict, x):
     """The gated MLP of the ported configs: act(x @ wg) * (x @ wu) @ wd."""
-    _check_ported(cfg)
+    _check_mlp(cfg)
     return (glu_act(cfg, x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
 
 
@@ -112,13 +118,13 @@ def mlp_apply(cfg: ModelConfig, p: dict, x):
 
 
 def embed_metas(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
+    _check_pos(cfg)
     return {"tok": ParamMeta((cfg.vocab_size, cfg.d_model), init="embed")}
 
 
 def embed_apply(cfg: ModelConfig, p: dict, tokens, positions=None):
     """Token embedding; positions enter through RoPE in attention."""
-    _check_ported(cfg)
+    _check_pos(cfg)
     x = p["tok"][tokens].to(cfg.cdtype)
     if cfg.embed_scale:
         # the scale is rounded to the compute dtype first, as the JAX

@@ -1,0 +1,203 @@
+"""RWKV-6 "Finch" block: time-mix with data-dependent decay + channel-mix
+(the JAX package's `models/ssm/rwkv6.py`).
+
+The per-channel decay w_t is a function of the input (a LoRA bottleneck
+on the token-shifted mix); the wkv state is a per-head (P x P) matrix:
+
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
+
+As in the JAX package, the token-shift coefficients are static learned
+vectors. The full-sequence path walks time chunks (a Python loop where
+the JAX package has `lax.scan`): within a chunk the in-chunk keys
+contribute through causal decay products, the carried state through one
+matrix product. The decay is per channel, so a chunk's decay products
+are (B, Lc, Lc, H, P), as in the JAX package. `rwkv6_time_mix_ref` is
+the per-step oracle.
+
+The decay LoRA and the wkv products are float32; `ln_x` is the RMSNorm
+kernel (K3) on the card, at d_model wide rows. The block norms around it
+are the model's (LayerNorm for RWKV6-3B), plain as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig, ParamMeta
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.ssm.mamba2 import chunk_len
+
+LORA_R = 32
+
+
+def _dims(cfg: ModelConfig):
+    P = cfg.ssm_head_dim
+    H = cfg.d_model // P
+    return H, P
+
+
+def rwkv6_metas(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    tm = {
+        # static token-shift mixes
+        "mu_r": ParamMeta((d,), init="zeros"),
+        "mu_k": ParamMeta((d,), init="zeros"),
+        "mu_v": ParamMeta((d,), init="zeros"),
+        "mu_w": ParamMeta((d,), init="zeros"),
+        "mu_g": ParamMeta((d,), init="zeros"),
+        "w_r": ParamMeta((d, d)),
+        "w_k": ParamMeta((d, d)),
+        "w_v": ParamMeta((d, d)),
+        "w_g": ParamMeta((d, d)),
+        "w_o": ParamMeta((d, d)),
+        # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(x @ a) @ b))
+        "decay_w0": ParamMeta((d,), init="zeros"),
+        "decay_a": ParamMeta((d, LORA_R)),
+        "decay_b": ParamMeta((LORA_R, d)),
+        "bonus_u": ParamMeta((d,), init="zeros"),
+        "ln_x": ParamMeta((d,), init="zeros"),
+    }
+    cm = {
+        "mu_k": ParamMeta((d,), init="zeros"),
+        "w_in": ParamMeta((d, cfg.d_ff)),
+        "w_out": ParamMeta((cfg.d_ff, d)),
+    }
+    return {"tm": tm, "cm": cm}
+
+
+def _shift(x, last=None):
+    """Previous-token view. x: (B,S,d); last: (B,d) decode carry or None."""
+    pad = torch.zeros_like(x[:, :1]) if last is None else last[:, None]
+    return torch.cat([pad, x[:, :-1]], dim=1)
+
+
+def _time_mix_inputs(cfg, p, x, last=None):
+    H, P = _dims(cfg)
+    B, S, d = x.shape
+    xx = _shift(x, last)
+
+    def mix(mu):
+        return x + (xx - x) * torch.sigmoid(mu)
+
+    r = (mix(p["mu_r"]) @ p["w_r"]).reshape(B, S, H, P)
+    k = (mix(p["mu_k"]) @ p["w_k"]).reshape(B, S, H, P)
+    v = (mix(p["mu_v"]) @ p["w_v"]).reshape(B, S, H, P)
+    g = F.silu(mix(p["mu_g"]) @ p["w_g"])
+    xw = mix(p["mu_w"])
+    f32 = torch.float32
+    logw = -torch.exp(
+        p["decay_w0"].to(f32)
+        + torch.tanh(xw.to(f32) @ p["decay_a"].to(f32)) @ p["decay_b"].to(f32)
+    )  # (B,S,d) log-decay <= 0, data-dependent
+    # clamp: a saturated decay (logw -> -inf) makes cum-sum differences in
+    # the chunked path inf - inf = NaN; e^-20 is already an exact-zero decay
+    logw = torch.clamp(logw, -20.0, -1e-6)
+    w = logw.reshape(B, S, H, P)
+    u = p["bonus_u"].reshape(H, P)
+    return r, k, v, g, w, u
+
+
+def _wkv_chunked(r, k, v, logw, u, chunk: int):
+    """Chunked wkv. r,k,v,logw: (B,S,H,P) float32; u: (H,P).
+    Returns y (B,S,H,P) float32 and the final state (B,H,P,P)."""
+    B, S, H, P = r.shape
+    Lc = chunk_len(S, chunk)
+    u = u.to(torch.float32)
+    strict = torch.ones((Lc, Lc), dtype=torch.bool, device=r.device).tril(-1)
+    above = ~strict[None, :, :, None, None]
+    y = torch.empty_like(r)
+    S_prev = torch.zeros((B, H, P, P), dtype=torch.float32, device=r.device)
+    for c0 in range(0, S, Lc):
+        sl = slice(c0, c0 + Lc)
+        ri, ki, vi, wi = r[:, sl], k[:, sl], v[:, sl], logw[:, sl]  # (B,Lc,H,P)
+        cum_w = torch.cumsum(wi, dim=1)  # inclusive log decay
+        # intra: y_i += sum_{j<i} r_i * exp(cum_w_{i-1} - cum_w_j) k_j * v_j
+        #        + r_i * diag(u) k_i v_i  (bonus, j == i)
+        # dec (B,i,j,H,P), built in place: exp overflows to inf on and
+        # above the diagonal, where it is replaced by 0
+        dec = (cum_w[:, :, None] - cum_w[:, None, :]).sub_(wi[:, :, None]).exp_()
+        dec.masked_fill_(above, 0.0)
+        att = dec.mul_(ri[:, :, None]).mul_(ki[:, None]).sum(-1)  # (B,i,j,H)
+        del dec
+        y_intra = torch.einsum("bijh,bjhp->bihp", att, vi)
+        bonus = (ri * u * ki).sum(-1)  # (B,Lc,H)
+        y_intra = y_intra + bonus[..., None] * vi
+        # inter: carried state, decayed from chunk start to i-1
+        y_inter = torch.einsum("bihp,bhpq->bihq", ri * torch.exp(cum_w - wi), S_prev)
+        # state update
+        decay_to_end = torch.exp(cum_w[:, -1:] - cum_w)
+        S_chunk = torch.einsum("bjhp,bjhq->bhpq", ki * decay_to_end, vi)
+        S_prev = S_prev * torch.exp(cum_w[:, -1])[..., None] + S_chunk
+        y[:, sl] = y_intra + y_inter
+    return y, S_prev
+
+
+def _finish(cfg, p, y, g):
+    B, S = y.shape[:2]
+    y = y.reshape(B, S, cfg.d_model)
+    y = rms_norm(y, p["ln_x"]) * g
+    return y @ p["w_o"]
+
+
+def rwkv6_time_mix(cfg: ModelConfig, p: dict, x, chunk: int = 64, want_state: bool = False):
+    """Full-sequence time-mix. x: (B,S,d) -> (B,S,d), or (out, final wkv
+    state) when want_state. The chunk length is ``chunk`` (64 by
+    default, as in the JAX package), not ``cfg.ssm_chunk``."""
+    r, k, v, g, w, u = _time_mix_inputs(cfg, p, x)
+    f32 = torch.float32
+    y, S_fin = _wkv_chunked(r.to(f32), k.to(f32), v.to(f32), w, u, chunk)
+    out = _finish(cfg, p, y.to(x.dtype), g)
+    return (out, S_fin) if want_state else out
+
+
+def _wkv_step(rt, kt, vt, wt, u, S_prev):
+    """One token of the recurrence: (y (B,H,P), S_new). All (B,H,P) but
+    u (H,P) and S_prev (B,H,P,P)."""
+    bonus = (rt * u.to(torch.float32) * kt).sum(-1)  # (B,H)
+    y = torch.einsum("bhp,bhpq->bhq", rt, S_prev) + bonus[..., None] * vt
+    S_new = S_prev * torch.exp(wt)[..., None] + torch.einsum("bhp,bhq->bhpq", kt, vt)
+    return y, S_new
+
+
+def rwkv6_time_mix_ref(cfg: ModelConfig, p: dict, x):
+    """Per-step oracle."""
+    H, P = _dims(cfg)
+    B, S, d = x.shape
+    r, k, v, g, w, u = _time_mix_inputs(cfg, p, x)
+    r, k, v, w = (a.to(torch.float32) for a in (r, k, v, w))
+    S_t = torch.zeros((B, H, P, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        y_t, S_t = _wkv_step(r[:, t], k[:, t], v[:, t], w[:, t], u, S_t)
+        ys.append(y_t)
+    y = torch.stack(ys, dim=1)
+    return _finish(cfg, p, y.to(x.dtype), g)
+
+
+def rwkv6_channel_mix(cfg: ModelConfig, p: dict, x, last=None):
+    xx = _shift(x, last)
+    xm = x + (xx - x) * torch.sigmoid(p["mu_k"])
+    h = torch.square(F.relu(xm @ p["w_in"]))
+    return h @ p["w_out"]
+
+
+def rwkv6_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device="cpu") -> dict:
+    H, P = _dims(cfg)
+    return {
+        "wkv": torch.zeros((batch, H, P, P), dtype=torch.float32, device=device),
+        "tm_last": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+        "cm_last": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+    }
+
+
+def rwkv6_decode(cfg: ModelConfig, p: dict, x, cache):
+    """One-token decode of a layer's time-mix (the caller runs the
+    channel-mix). x: (B,1,d), the normed input; p holds ``tm`` and ``cm``.
+    Returns (out, new cache); the cache given is not written."""
+    r, k, v, g, w, u = _time_mix_inputs(cfg, p["tm"], x, last=cache["tm_last"])
+    rt, kt, vt, wt = (a[:, 0].to(torch.float32) for a in (r, k, v, w))
+    y, S_new = _wkv_step(rt, kt, vt, wt, u, cache["wkv"])
+    out = _finish(cfg, p["tm"], y[:, None].to(x.dtype), g)
+    return out, dict(cache, wkv=S_new, tm_last=x[:, 0])

@@ -7,10 +7,15 @@ Every architecture is a repeated `pattern` of block kinds. The port runs
     attn_nc     non-causal self-attention + MLP
     moe         full causal self-attention + MoE
     moe_local   sliding-window self-attention + MoE (mixtral)
+    mamba       Mamba2 SSD block (no separate MLP)
+    rwkv        RWKV6 time-mix + channel-mix
 
 and raises ``NotImplementedError`` for the others (``xattn``,
-``attn_xattn``, ``mamba``, ``rwkv``, the shared attention block and the
-encoder), which wait for ROADMAP §1 item 7.
+``attn_xattn``) and the encoder, which wait for ROADMAP §1 item 7.
+
+`cfg.shared_attn` (zamba2): one *shared* attention block (weights outside
+the groups) is applied at the start of every group; its KV caches are
+per group.
 
 Parameters for each pattern position are stacked over groups, as in the
 JAX package (``groups/b{i}`` leaves of shape (num_groups, ...)). Where
@@ -18,6 +23,12 @@ the JAX package scans over that axis, the port loops over it in Python,
 indexing each leaf; there is no backward pass, so there is no remat. The
 MoE blocks' load-balance losses are summed over the stack as the JAX
 package sums them: per group, then over the groups.
+
+Caches: attention blocks keep K/V, a Mamba2 block its SSM state and the
+last conv inputs, an RWKV6 block its wkv state and the last normed inputs
+of its time- and channel-mix (`cache_dtype`: the recurrent states in
+float32, the rest in the model dtype). `prefill` hands the chunked
+scans' final states to decode; `decode_step` writes every cache in place.
 """
 from __future__ import annotations
 
@@ -35,24 +46,25 @@ from repro_torch.models.layers import (
     mlp_metas,
     unembed_apply,
 )
+from repro_torch.models.ssm import mamba2, rwkv6
 
 DENSE_KINDS = ("attn", "attn_local", "attn_nc")
 MOE_KINDS = ("moe", "moe_local")
-PORTED_KINDS = DENSE_KINDS + MOE_KINDS
+ATTN_KINDS = DENSE_KINDS + MOE_KINDS
+RECURRENT_KINDS = ("mamba", "rwkv")
+PORTED_KINDS = ATTN_KINDS + RECURRENT_KINDS
 
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP §1 item 7: Mamba2, RWKV6, "
-        "cross-attention, the shared attention block and the encoder)")
+        f"{what} is not ported yet (ROADMAP §1 item 7: cross-attention "
+        "(xattn, attn_xattn) and the encoder)")
 
 
 def _check_ported(cfg: ModelConfig):
     for kind in cfg.pattern:
         if kind not in PORTED_KINDS:
             raise _not_ported(f"block kind {kind!r}")
-    if cfg.shared_attn:
-        raise _not_ported("shared_attn")
     if cfg.encoder_layers:
         raise _not_ported("encoder_layers")
 
@@ -64,7 +76,11 @@ def _check_ported(cfg: ModelConfig):
 
 def block_metas(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
-    if kind in PORTED_KINDS:
+    if kind == "mamba":
+        return {"ln1": norm_meta(d), "mamba": mamba2.mamba2_metas(cfg)}
+    if kind == "rwkv":
+        return {"ln1": norm_meta(d), "ln2": norm_meta(d), "rwkv": rwkv6.rwkv6_metas(cfg)}
+    if kind in ATTN_KINDS:
         m = {"ln1": norm_meta(d), "attn": attn.attn_metas(cfg), "ln2": norm_meta(d)}
         if kind in MOE_KINDS:
             m["moe"] = moe_mod.moe_metas(cfg)
@@ -83,8 +99,13 @@ def model_metas(cfg: ModelConfig) -> dict:
         f"b{i}": stack_group(block_metas(cfg, kind), cfg.num_groups)
         for i, kind in enumerate(cfg.pattern)
     }
-    return {"embed": embed_metas(cfg), "groups": groups,
-            "final_norm": norm_meta(cfg.d_model)}
+    m = {"embed": embed_metas(cfg), "groups": groups,
+         "final_norm": norm_meta(cfg.d_model)}
+    if cfg.shared_attn:  # drawn once, outside the groups
+        d = cfg.d_model
+        m["shared_attn"] = {"ln1": norm_meta(d), "attn": attn.attn_metas(cfg),
+                            "ln2": norm_meta(d), "mlp": mlp_metas(cfg)}
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -116,19 +137,51 @@ def _ffn(cfg: ModelConfig, kind: str, p: dict, h):
     return mlp_apply(cfg, p["mlp"], h), None
 
 
+def _no_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def block_apply(cfg: ModelConfig, kind: str, p: dict, x, *, positions,
                 want_cache: bool = False):
     """Returns (x, aux_loss, cache_or_None)."""
-    if kind not in PORTED_KINDS:
+    if kind == "mamba":
+        h = apply_norm(cfg, x, p["ln1"])
+        if want_cache:
+            out, st = mamba2.mamba2_apply(cfg, p["mamba"], h, want_state=True)
+            return x + out, _no_aux(x), st
+        return x + mamba2.mamba2_apply(cfg, p["mamba"], h), _no_aux(x), None
+    if kind == "rwkv":
+        h1 = apply_norm(cfg, x, p["ln1"])
+        if want_cache:
+            out, wkv = rwkv6.rwkv6_time_mix(cfg, p["rwkv"]["tm"], h1, want_state=True)
+        else:
+            out, wkv = rwkv6.rwkv6_time_mix(cfg, p["rwkv"]["tm"], h1), None
+        x = x + out
+        h2 = apply_norm(cfg, x, p["ln2"])
+        x = x + rwkv6.rwkv6_channel_mix(cfg, p["rwkv"]["cm"], h2)
+        cache = (
+            {"wkv": wkv, "tm_last": h1[:, -1], "cm_last": h2[:, -1]} if want_cache else None
+        )
+        return x, _no_aux(x), cache
+    if kind not in ATTN_KINDS:
         raise _not_ported(f"block kind {kind!r}")
     x, cache = _attn_sub(cfg, p, x, kind, positions, want_cache)
     h = apply_norm(cfg, x, p["ln2"])
     out, aux = _ffn(cfg, kind, p, h)
     if cfg.post_norm:
         out = apply_norm(cfg, out, p["ln2_post"])
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + out, aux, cache
+    return x + out, (_no_aux(x) if aux is None else aux), cache
+
+
+def _shared_attn_apply(cfg: ModelConfig, sp: dict, x, positions):
+    """The shared attention + MLP block over the full sequence. Returns
+    (x, (k, v)): its K/V feed the group's prefill cache."""
+    h = apply_norm(cfg, x, sp["ln1"])
+    out, kv = attn.self_attention(cfg, sp["attn"], h, window=cfg.window_size,
+                                  positions=positions)
+    x = x + out
+    h = apply_norm(cfg, x, sp["ln2"])
+    return x + mlp_apply(cfg, sp["mlp"], h), kv
 
 
 def group_params(params: dict, g: int) -> dict:
@@ -141,9 +194,12 @@ def _stack_forward(cfg: ModelConfig, params: dict, x, positions):
     """Decoder trunk (no embed/unembed). Returns (x, total_aux): each
     group's blocks' aux losses summed, then the groups' sums."""
     auxs = []
+    shared = params.get("shared_attn")
     for g in range(cfg.num_groups):
         gp = group_params(params, g)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if shared is not None:
+            x, _ = _shared_attn_apply(cfg, shared, x, positions)
         for i, kind in enumerate(cfg.pattern):
             x, a, _ = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions)
             aux = aux + a
@@ -168,38 +224,66 @@ def forward(cfg: ModelConfig, params: dict, tokens):
 
 
 # ---------------------------------------------------------------------------
-# KV caches
+# KV / state caches
 # ---------------------------------------------------------------------------
 
 
 def ring_len(cfg: ModelConfig, kind: str, seq: int) -> int:
-    """Self-attention cache length for a block: the full seq, or the ring
-    size min(seq, window) under the ring-cache option."""
+    """Self-attention cache length for a block (``kind`` "shared" for the
+    shared attention block): the full seq, or the ring size min(seq,
+    window) under the ring-cache option."""
     if not cfg.decode_window_slicing:
         return seq
     if kind in ("attn_local", "moe_local") and cfg.window_size:
         w = cfg.window_size
+    elif kind == "shared":
+        w = cfg.window_size or cfg.attn_window_override
     else:
         w = cfg.attn_window_override
     return min(seq, w) if w else seq
 
 
 def cache_metas(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    """ParamMeta tree describing the decode cache: for each pattern
-    position, k and v of shape (num_groups, batch, R, KV, hd)."""
+    """ParamMeta tree describing the decode cache, each leaf stacked over
+    the groups: k and v (num_groups, batch, R, KV, hd) for an attention
+    block (and under ``shared`` for the shared attention block); ssm,
+    conv_x and conv_bc for a Mamba2 block; wkv, tm_last and cm_last for
+    an RWKV6 block."""
     _check_ported(cfg)
     kv, hd, G = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_groups
+
+    def meta(*shape):
+        return ParamMeta((G, batch) + shape, init="zeros")
+
     caches = {}
     for i, kind in enumerate(cfg.pattern):
-        r = ring_len(cfg, kind, seq)
-        caches[f"b{i}"] = {"k": ParamMeta((G, batch, r, kv, hd), init="zeros"),
-                           "v": ParamMeta((G, batch, r, kv, hd), init="zeros")}
+        if kind in ATTN_KINDS:
+            r = ring_len(cfg, kind, seq)
+            caches[f"b{i}"] = {"k": meta(r, kv, hd), "v": meta(r, kv, hd)}
+        elif kind == "mamba":
+            d_inner, H, P, N = mamba2._dims(cfg)
+            caches[f"b{i}"] = {"ssm": meta(H, P, N),
+                               "conv_x": meta(cfg.ssm_conv - 1, d_inner),
+                               "conv_bc": meta(cfg.ssm_conv - 1, 2 * N)}
+        elif kind == "rwkv":
+            H, P = rwkv6._dims(cfg)
+            caches[f"b{i}"] = {"wkv": meta(H, P, P), "tm_last": meta(cfg.d_model),
+                               "cm_last": meta(cfg.d_model)}
+    if cfg.shared_attn:
+        r = ring_len(cfg, "shared", seq)
+        caches["shared"] = {"k": meta(r, kv, hd), "v": meta(r, kv, hd)}
     return caches
+
+
+def cache_dtype(path_key: str, default_dtype):
+    """SSM/wkv recurrent states stay float32; K/V, conv taps and the
+    RWKV token-shift carries use the model dtype."""
+    return torch.float32 if path_key in ("ssm", "wkv") else default_dtype
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cuda"):
     dtype = dtype or cfg.cdtype
-    return {b: {key: torch.zeros(m.shape, dtype=dtype, device=device)
+    return {b: {key: torch.zeros(m.shape, dtype=cache_dtype(key, dtype), device=device)
                 for key, m in c.items()}
             for b, c in cache_metas(cfg, batch, seq).items()}
 
@@ -210,8 +294,20 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cuda"
 
 
 def block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int):
-    """One-token decode for a single block. Returns (x, cache), with the
-    cache updated in place."""
+    """One-token decode for a single block. Returns (x, new cache): an
+    attention block's cache is the one given, written in place; a
+    recurrent block's holds new tensors (the caller writes them back)."""
+    if kind == "mamba":
+        h = apply_norm(cfg, x, p["ln1"])
+        out, new_cache = mamba2.mamba2_decode(cfg, p["mamba"], h, cache)
+        return x + out, new_cache
+    if kind == "rwkv":
+        h = apply_norm(cfg, x, p["ln1"])
+        out, new_cache = rwkv6.rwkv6_decode(cfg, p["rwkv"], h, cache)
+        x = x + out
+        h = apply_norm(cfg, x, p["ln2"])
+        out = rwkv6.rwkv6_channel_mix(cfg, p["rwkv"]["cm"], h, last=cache["cm_last"])
+        return x + out, dict(new_cache, cm_last=h[:, 0])
     if kind not in ("attn", "attn_local") + MOE_KINDS:
         raise _not_ported(f"decode of block kind {kind!r}")
     h = apply_norm(cfg, x, p["ln1"])
@@ -227,6 +323,22 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int):
     return x + out, cache
 
 
+def _shared_attn_decode(cfg: ModelConfig, sp: dict, x, cache, pos: int):
+    """One token through the shared attention + MLP block, against its
+    group's K/V ``cache`` (written in place)."""
+    h = apply_norm(cfg, x, sp["ln1"])
+    out, _ = attn.decode_self_attention(cfg, sp["attn"], h, cache, pos,
+                                        window=cfg.window_size)
+    x = x + out
+    h = apply_norm(cfg, x, sp["ln2"])
+    return x + mlp_apply(cfg, sp["mlp"], h)
+
+
+def _group_cache(c: dict, g: int) -> dict:
+    """Group g's slice of every leaf of a block's cache (views)."""
+    return {k: v[g] for k, v in c.items()}
+
+
 def decode_step(cfg: ModelConfig, params: dict, caches: dict, tokens, pos: int):
     """serve_step: one new token against a cache of `seq` positions.
     tokens: (B,1) int; pos: int. Returns (logits (B,1,V), caches), the
@@ -235,12 +347,17 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, tokens, pos: int):
     B = tokens.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device)
     x = embed_apply(cfg, params["embed"], tokens, positions)
+    shared = params.get("shared_attn")
     for g in range(cfg.num_groups):
         gp = group_params(params, g)
+        if shared is not None:
+            x = _shared_attn_decode(cfg, shared, x, _group_cache(caches["shared"], g), pos)
         for i, kind in enumerate(cfg.pattern):
-            c = caches[f"b{i}"]
-            x, _ = block_decode(cfg, kind, gp[f"b{i}"], x,
-                                {"k": c["k"][g], "v": c["v"][g]}, pos)
+            view = _group_cache(caches[f"b{i}"], g)
+            x, new = block_decode(cfg, kind, gp[f"b{i}"], x, view, pos)
+            for k, t in new.items():
+                if t is not view[k]:
+                    view[k].copy_(t)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed_apply(cfg, params["embed"], x), caches
 
@@ -257,29 +374,46 @@ def to_ring(c, out):
         out.copy_(torch.roll(c[:, Sp - R:], Sp % R, dims=1))
 
 
+def _store(cfg: ModelConfig, caches: dict, key: str, kind: str, c: dict, g: int,
+           cache_len: int):
+    """Write group g's prefill cache ``c`` of block ``key`` into
+    ``caches``, allocating each leaf at its final (num_groups, ...) size
+    on first sight: K/V laid out for decode by `to_ring`, the recurrent
+    states (the chunked scans' final states and the last inputs) as they
+    come, in the dtype they come in."""
+    out = caches.setdefault(key, {})
+    for k, t in c.items():
+        ring = k in ("k", "v")
+        if k not in out:
+            shape = ((t.shape[0], ring_len(cfg, kind, cache_len)) + tuple(t.shape[2:])
+                     if ring else tuple(t.shape))
+            out[k] = torch.zeros((cfg.num_groups,) + shape, dtype=t.dtype, device=t.device)
+        if ring:
+            to_ring(t, out[k][g])
+        else:
+            out[k][g].copy_(t)
+
+
 def prefill(cfg: ModelConfig, params: dict, tokens, cache_len: int):
     """Run the full prompt, returning (logits of the last position (B,1,V),
-    caches sized cache_len). Each block's prompt K/V is written into a
-    cache allocated once at its final size (the JAX package stacks them,
-    then pads or rolls)."""
+    caches sized cache_len). Each block's prompt K/V, and each recurrent
+    block's final state, is written into a cache allocated once at its
+    final size (the JAX package stacks them, then pads or rolls)."""
     _check_ported(cfg)
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
     x = embed_apply(cfg, params["embed"], tokens, positions)
+    shared = params.get("shared_attn")
     caches = {}
     for g in range(cfg.num_groups):
         gp = group_params(params, g)
+        if shared is not None:
+            x, kv = _shared_attn_apply(cfg, shared, x, positions)
+            _store(cfg, caches, "shared", "shared", {"k": kv[0], "v": kv[1]}, g, cache_len)
         for i, kind in enumerate(cfg.pattern):
             x, _, c = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions,
                                   want_cache=True)
-            key = f"b{i}"
-            if key not in caches:
-                R = ring_len(cfg, kind, cache_len)
-                shape = (cfg.num_groups, B, R) + tuple(c["k"].shape[2:])
-                caches[key] = {kk: torch.zeros(shape, dtype=c[kk].dtype, device=x.device)
-                               for kk in ("k", "v")}
-            for kk in ("k", "v"):
-                to_ring(c[kk], caches[key][kk][g])
+            _store(cfg, caches, f"b{i}", kind, c, g, cache_len)
     x = apply_norm(cfg, x, params["final_norm"])
     logits = unembed_apply(cfg, params["embed"], x[:, -1:])
     return logits, caches

@@ -166,11 +166,16 @@ def test_serving_torch_backend_raises_without_a_card():
 
 
 def test_multi_client_example_runs_on_the_cpu():
+    # One intra-op thread: torch otherwise starts a thread per core in the
+    # subprocess, beside the test workers that already load every core;
+    # oversubscribed so, the ~15 s example ran past the 300 s limit. With
+    # one thread it takes about as long alone as with all of them.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
     r = subprocess.run([sys.executable, str(MULTI_CLIENT), "--device", "cpu",
                         "--clients", "2", "--duration", "20", "--size", "24",
                         "--fuse-train", "2"],
-                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                       capture_output=True, text=True, timeout=300)
+                       env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     lines = r.stdout.strip().splitlines()
     m = re.search(r"clients=2 policy=fair gpus=1 mean mIoU=([\d.]+) .* "

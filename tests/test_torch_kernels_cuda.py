@@ -10,7 +10,12 @@ threshold bits) exactly, with byte-identical masks; K3 (RMSNorm) and K4
 and 2e-5 in float32. K4's bfloat16 cases go through its tensor-core
 kernel, its float32 cases through its CUDA-core kernel.
 
-Also on the card, though no kernel of the port computes them: the MoE
+K4 at head dim 112 (Zamba2-7B's shared attention) on both routes: the
+bf16 route runs its hd 128 instantiation over 112-wide tensor maps.
+
+Also on the card, though no kernel of the port computes them: one Mamba2
+and one RWKV6 layer against themselves on the CPU (their scans are plain
+torch; their inner norms are K3), the MoE
 layer's dispatch (the same routing, positions and keep mask as on the
 CPU, outputs within 1e-5 in relative norm in float32, and two runs equal
 bit for bit), and the student's ReLU6 gradient at its kinks (0.5, as the JAX package's
@@ -327,6 +332,41 @@ def test_flash_attention_bf16_route(dev, B, S, KV, G, hd, causal, window, softca
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert torch.isfinite(got.float()).all()
     assert _within_bf16_ulp(got, flash_attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("B,S,KV,G,causal,window,softcap,dtype", [
+    (2, 8000, 32, 1, True, 0, 0.0, torch.bfloat16),     # Zamba2-7B's shared attention
+    (1, 1000, 2, 2, False, 0, 0.0, torch.bfloat16),     # non-causal
+    (1, 333, 4, 1, True, 100, 50.0, torch.bfloat16),    # ragged S, window, softcap
+    (1, 777, 1, 4, True, 300, 30.0, torch.float32),     # ragged S on the CUDA cores
+    (2, 1000, 2, 2, False, 0, 0.0, torch.float32),      # non-causal on the CUDA cores
+])
+def test_flash_attention_head_dim_112(dev, B, S, KV, G, causal, window, softcap, dtype):
+    """Head dim 112 on both routes against the plain version (one batch
+    row at a time): bf16 within one bf16 ulp, float32 within 2e-5; the
+    launch counted on the route of its dtype."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    hd = 112
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(B, S, KV, G, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    route = attn_ops.ROUTES[dtype][0]
+    n0, r0 = attn_ops.launches, attn_ops.launches_by_route[route]
+    got = attn_ops.flash_attention(q, k, v, **kw)
+    assert attn_ops.launches == n0 + 1 and attn_ops.launches_by_route[route] == r0 + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    for b in range(B):
+        want = flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got[b:b + 1], want, rtol=2e-5, atol=2e-5)
+        else:
+            assert _within_bf16_ulp(got[b:b + 1], want)
 
 
 def test_flash_attention_bf16_near_hard_max_as_close_to_float64_as_plain(dev):
@@ -691,3 +731,59 @@ def test_moe_on_the_card(dev, arch):
     rel = float((got.cpu() - want).norm() / want.norm())
     assert rel < 1e-5, rel
     assert abs(float(aux) - float(aux_want)) < 1e-5
+
+
+def _to(params, dev):
+    from repro_torch import tree
+
+    return tree.tree_map(lambda t: t.to(dev), params)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
+def test_recurrent_layer_on_the_card(dev, arch):
+    """One Mamba2 block (Zamba2-7B's widths: d_model 3584, d_inner 7168,
+    d_state 64; 300 tokens, chunks of 100 and 3 decode steps) and one
+    RWKV6 block (RWKV6-3B's: d_model 2560, 40 heads of 64; 200 tokens,
+    chunks of 64 shrunk to 50) on the card against the same block on the
+    CPU, in float32 (in relative norm, 1e-5: cuBLAS and the reductions sum
+    in another order), with the prefill's hand-off state and the decode
+    steps; the inner norm launches K3 once a call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import init_params
+
+    cfg = get_config(arch, num_layers=len(get_config(arch).pattern), param_dtype="float32",
+                     compute_dtype="float32")
+    kind = cfg.pattern[0]
+    metas = tfm.block_metas(cfg, kind)
+    params = init_params(metas, torch.Generator().manual_seed(0), torch.float32,
+                         torch.device("cpu"))
+    if kind == "mamba":  # decays of a few steps, as a trained model has
+        params["mamba"]["a_log"].normal_(0.0, 0.5, generator=torch.Generator().manual_seed(1))
+    S = 300 if kind == "mamba" else 200
+    x = torch.randn(2, S + 3, cfg.d_model, generator=torch.Generator().manual_seed(2))
+    pos = torch.arange(S).expand(2, S)
+
+    def run(p, xs):  # K3 takes contiguous rows, as the model hands it
+        out, _, cache = tfm.block_apply(cfg, kind, p, xs[:, :S].contiguous(),
+                                        positions=pos.to(xs.device), want_cache=True)
+        outs = [out]
+        for t in range(S, S + 3):
+            o, new = tfm.block_decode(cfg, kind, p, xs[:, t:t + 1].contiguous(), cache, t)
+            cache = dict(cache, **new)
+            outs.append(o)
+        return torch.cat(outs, dim=1), cache
+
+    want, cache_want = run(params, x)
+    n0 = norm_ops.launches
+    got, cache_got = run(_to(params, dev), x.to(dev))
+    torch.cuda.synchronize()
+    # a call: Mamba2's ln1 and inner norm; RWKV6's ln_x (its block norms
+    # are LayerNorm); 1 prefill + 3 decode calls
+    assert norm_ops.launches - n0 == {"mamba": 2, "rwkv": 1}[kind] * 4
+    for a, b in [(got, want)] + [(cache_got[k], cache_want[k]) for k in cache_want]:
+        a = a.cpu()
+        assert torch.isfinite(a).all()
+        rel = float((a - b).norm() / b.norm())
+        assert rel < 1e-5, rel

@@ -2,15 +2,18 @@
 configs of Gemma-2 9B (local + global attention, softcaps, post-norms;
 window 16), Gemma 2B (MQA), Moonlight-16B-A3B (MoE: 4 experts top-2 and
 a shared expert, SwiGLU), Mixtral 8x22B (windowed MoE, no shared
-expert), Llama-4 Maverick (dense and MoE blocks alternating, top-1) and
-Llama 3 405B (dense SwiGLU): the same parameters (the JAX package's init,
-carried over with `params_from_numpy`) and the same prompts.
+expert), Llama-4 Maverick (dense and MoE blocks alternating, top-1),
+Llama 3 405B (dense SwiGLU), Zamba2-7B (Mamba2 blocks and a shared
+attention block) and RWKV6-3B (LayerNorm, no positions): the same
+parameters (the JAX package's init, carried over with
+`params_from_numpy`) and the same prompts.
 
 Held: `forward` logits and the MoE aux loss; `prefill` logits and every
-cache leaf; 4 `decode_step`s, whose logits agree and whose greedy tokens
-are identical (a decode step of the MoE configs has cap = 1, so a token
-is dropped whenever both rows pick the same expert, as in the JAX
-package); the serving entry point end to end. Tolerances on float32:
+cache leaf (K/V, and the recurrent states the prefill hands to decode);
+4 `decode_step`s (8 for the recurrent configs), whose logits agree and
+whose greedy tokens are identical (a decode step of the MoE configs has
+cap = 1, so a token is dropped whenever both rows pick the same expert,
+as in the JAX package); the serving entry point end to end. Tolerances on float32:
 rtol 1e-4, atol 1e-5 (the port's attention takes a two-pass softmax and
 the JAX model an online one over 512-row chunks; matmul sums run in
 another order), and atol adds 1e-4 of the largest |value| of each
@@ -38,9 +41,11 @@ from repro_torch.models.registry import build, params_from_numpy
 
 RTOL, ATOL, SCALE_ATOL = 1e-4, 1e-5, 1e-4  # SCALE_ATOL: times max |want|
 ARCHS = ["gemma2-9b", "gemma-2b", "moonshot-v1-16b-a3b", "mixtral-8x22b",
-         "llama4-maverick-400b-a17b", "llama3-405b"]
+         "llama4-maverick-400b-a17b", "llama3-405b", "zamba2-7b", "rwkv6-3b"]
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "mixtral-8x22b", "llama4-maverick-400b-a17b"]
+RECURRENT_ARCHS = ["zamba2-7b", "rwkv6-3b"]
 B, S, N_DECODE = 2, 40, 4
+N_DECODE_RECURRENT = 8
 
 
 def _setup(arch, **overrides):
@@ -84,12 +89,15 @@ def test_configs_and_param_trees_match():
         assert _paths(metas_t) == [tuple(p.key for p in path) for path, _ in leaves_j]
     assert build(get_config("gemma2-9b")).num_params() == 9_241_705_984
     assert build(get_config("moonshot-v1-16b-a3b")).num_params() == 28_552_923_136
+    assert build(get_config("zamba2-7b")).num_params() == 6_635_851_856
+    assert build(get_config("rwkv6-3b")).num_params() == 2_690_501_120
 
 
 def test_unported_kinds_raise():
+    """Cross-attention and the encoder wait for item 7."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("zamba2-7b")
-    cfg = get_smoke("gemma-2b").replace(pattern=("mamba",))
+        get_config("llama-3.2-vision-90b")
+    cfg = get_smoke("gemma-2b").replace(pattern=("xattn",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(cfg).metas()
 
@@ -111,28 +119,37 @@ def test_forward_matches_jax(arch):
                                        ("moonshot-v1-16b-a3b", False),
                                        ("mixtral-8x22b", False), ("mixtral-8x22b", True),
                                        ("llama4-maverick-400b-a17b", False),
-                                       ("llama3-405b", False)])
+                                       ("llama3-405b", False),
+                                       ("zamba2-7b", False), ("zamba2-7b", True),
+                                       ("rwkv6-3b", False)])
 def test_prefill_and_decode_match_jax(arch, ring):
-    """Prefill's logits and caches, then 4 decode steps. ``ring`` turns on
-    the ring cache: the local layers keep min(seq, window) = 16 slots."""
-    cfg_j, cfg_t, params_j, params_t, tokens = _setup(arch, decode_window_slicing=ring)
+    """Prefill's logits and caches, then 4 decode steps (8 for the
+    recurrent configs). ``ring`` turns on the ring cache: the local layers
+    keep min(seq, window) = 16 slots; Zamba2, which has no window, takes
+    ``attn_window_override=8`` (as the JAX package's ring-cache test
+    does), so its shared block keeps 8."""
+    over = dict(attn_window_override=8) if ring and arch == "zamba2-7b" else {}
+    cfg_j, cfg_t, params_j, params_t, tokens = _setup(arch, decode_window_slicing=ring, **over)
     mj, mt = build_jax(cfg_j), build(cfg_t)
-    cache_len = S + N_DECODE
+    n_decode = N_DECODE_RECURRENT if arch in RECURRENT_ARCHS else N_DECODE
+    cache_len = S + n_decode
     logits_j, caches_j = mj.prefill(params_j, jnp.asarray(tokens), cache_len)
     logits_t, caches_t = mt.prefill(params_t, torch.from_numpy(tokens), cache_len)
     _close(logits_t, logits_j)
     leaves_j, _ = jax.tree.flatten(caches_j)
     leaves_t, _ = tree.flatten(caches_t)
     assert [a.shape for a in leaves_j] == [tuple(t.shape) for t in leaves_t]
+    assert [a.dtype.name for a in leaves_j] == [str(t.dtype)[6:] for t in leaves_t]
     if ring:
-        assert caches_t["b0"]["k"].shape[2] == cfg_t.window_size
+        ringed = caches_t["shared"] if over else caches_t["b0"]
+        assert ringed["k"].shape[2] == (8 if over else cfg_t.window_size)
     for a, t in zip(leaves_j, leaves_t):
         _close(t, a)
 
     decode_j = jax.jit(mj.decode_step)
     tok_j = jnp.argmax(logits_j[:, -1:], axis=-1).astype(jnp.int32)
     tok_t = torch.argmax(logits_t[:, -1:], dim=-1).to(torch.int32)
-    for i in range(N_DECODE):
+    for i in range(n_decode):
         assert np.array_equal(np.asarray(tok_j), tok_t.numpy())
         logits_j, caches_j = decode_j(params_j, caches_j, tok_j, jnp.int32(S + i))
         logits_t, caches_t = mt.decode_step(params_t, caches_t, tok_t, S + i)
@@ -140,6 +157,34 @@ def test_prefill_and_decode_match_jax(arch, ring):
         tok_j = jnp.argmax(logits_j[:, -1:], axis=-1).astype(jnp.int32)
         tok_t = torch.argmax(logits_t[:, -1:], dim=-1).to(torch.int32)
     assert np.array_equal(np.asarray(tok_j), tok_t.numpy())
+    for a, t in zip(jax.tree.leaves(caches_j), tree.leaves(caches_t)):
+        _close(t, a)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_zamba2_groups_keep_their_own_caches(ring):
+    """Zamba2's smoke config has one group; at 9 layers (3 groups) each
+    group's shared-attention K/V and Mamba2 states are its own slices:
+    prefill's caches and 8 decode steps agree with the JAX package's."""
+    over = dict(num_layers=9, decode_window_slicing=ring, attn_window_override=8 if ring else 0)
+    cfg_j, cfg_t, params_j, params_t, tokens = _setup("zamba2-7b", **over)
+    assert cfg_t.num_groups == 3
+    mj, mt = build_jax(cfg_j), build(cfg_t)
+    logits_j, caches_j = mj.prefill(params_j, jnp.asarray(tokens), S + N_DECODE_RECURRENT)
+    logits_t, caches_t = mt.prefill(params_t, torch.from_numpy(tokens), S + N_DECODE_RECURRENT)
+    _close(logits_t, logits_j)
+    for a, t in zip(jax.tree.leaves(caches_j), tree.leaves(caches_t)):
+        _close(t, a)
+    tok_j = jnp.argmax(logits_j[:, -1:], axis=-1).astype(jnp.int32)
+    tok_t = torch.argmax(logits_t[:, -1:], dim=-1).to(torch.int32)
+    decode_j = jax.jit(mj.decode_step)
+    for i in range(N_DECODE_RECURRENT):
+        logits_j, caches_j = decode_j(params_j, caches_j, tok_j, jnp.int32(S + i))
+        logits_t, caches_t = mt.decode_step(params_t, caches_t, tok_t, S + i)
+        _close(logits_t, logits_j)
+        tok_j = jnp.argmax(logits_j[:, -1:], axis=-1).astype(jnp.int32)
+        tok_t = torch.argmax(logits_t[:, -1:], dim=-1).to(torch.int32)
+        assert np.array_equal(np.asarray(tok_j), tok_t.numpy())
     for a, t in zip(jax.tree.leaves(caches_j), tree.leaves(caches_t)):
         _close(t, a)
 
@@ -200,6 +245,22 @@ def test_serve_cli_takes_the_moe_smoke_config(capsys):
     assert len(eval(sample[0].split(":", 1)[1])) == 3
 
 
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_serve_cli_takes_the_recurrent_smoke_configs(arch, capsys):
+    """``--arch zamba2-7b`` and ``--arch rwkv6-3b`` with ``--device cpu``
+    serve the smoke configs: finite logits, no kernel launches,
+    ``--tokens`` tokens."""
+    from repro_torch.launch import serve as serve_torch
+
+    serve_torch.main(["--arch", arch, "--batch", "2", "--prompt-len", "8",
+                      "--tokens", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"arch={arch} device=cpu" in out and "finite=True" in out
+    assert "'rms_norm': 0, 'flash_attention': 0" in out
+    sample = [l for l in out.splitlines() if l.startswith("sample:")]
+    assert len(eval(sample[0].split(":", 1)[1])) == 4
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_on_cpu(arch):
     """The serving entry point on the CPU: greedy tokens equal a decode
@@ -230,6 +291,31 @@ def test_init_cache_matches_jax(ring):
     leaves_j, leaves_t = jax.tree.leaves(want), tree.leaves(got)
     assert [a.shape for a in leaves_j] == [tuple(t.shape) for t in leaves_t]
     assert all(t.dtype == torch.float32 and not t.any() for t in leaves_t)
+
+
+@pytest.mark.parametrize("arch,ring", [("zamba2-7b", False), ("zamba2-7b", True),
+                                       ("rwkv6-3b", False)])
+def test_recurrent_init_cache_matches_jax(arch, ring):
+    """The recurrent caches in a bfloat16 model: the SSM and wkv states in
+    float32, the conv inputs, K/V and token-shift carries in bfloat16
+    (`cache_dtype`), shapes and leaf names as in the JAX package (the
+    shared block's K/V under ``shared``, ring-sized under the override)."""
+    over = dict(compute_dtype="bfloat16", decode_window_slicing=ring,
+                attn_window_override=8 if ring else 0)
+    want = build_jax(get_smoke_jax(arch, **over)).init_cache(B, S)
+    got = build(get_smoke(arch, **over)).init_cache(B, S, device="cpu")
+    paths_j = [tuple(p.key for p in path)
+               for path, _ in jax.tree_util.tree_flatten_with_path(want)[0]]
+    assert _paths(got) == paths_j
+    leaves_j, leaves_t = jax.tree.leaves(want), tree.leaves(got)
+    assert [(a.shape, a.dtype.name) for a in leaves_j] == [
+        (tuple(t.shape), str(t.dtype)[6:]) for t in leaves_t]
+    assert all(not t.any() for t in leaves_t)
+    dtypes = {p[-1]: str(t.dtype)[6:] for p, t in zip(paths_j, leaves_t)}
+    assert all(dt == ("float32" if k in ("ssm", "wkv") else "bfloat16")
+               for k, dt in dtypes.items())
+    if ring:
+        assert got["shared"]["k"].shape[2] == 8
 
 
 def test_large_leaves_draw_slice_by_slice(monkeypatch):

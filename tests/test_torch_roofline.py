@@ -21,7 +21,7 @@ from repro_torch.launch import mesh
 from repro_torch.roofline import analysis, analytic
 
 ARCHS = ["gemma2-9b", "gemma-2b", "moonshot-v1-16b-a3b", "mixtral-8x22b",
-         "llama4-maverick-400b-a17b", "llama3-405b"]
+         "llama4-maverick-400b-a17b", "llama3-405b", "zamba2-7b", "rwkv6-3b"]
 SHAPES = {"train": (4096, 256), "prefill": (8000, 2), "decode": (8064, 2),
           "decode_long": (500_000, 1)}
 
@@ -66,8 +66,28 @@ def test_moonlight_anchors():
         analytic.model_metas(cfg))
 
 
+@pytest.mark.parametrize("arch,pre,pre_model,pre_bytes,dec_bytes", [
+    ("zamba2-7b", 4.375e14, 2.124e14, 9.408e10, 2.012e10),
+    ("rwkv6-3b", 8.154e13, 8.610e13, 2.639e10, 5.468e9),
+])
+def test_recurrent_anchors(arch, pre, pre_model, pre_bytes, dec_bytes):
+    """The numbers the hybrid and recurrent serving paths are held to on
+    the card (2 prompts of 8,000 tokens; decode against 8,064 positions):
+    Zamba2's prefill bound 442.4 ms (operations), decode 6.01 ms (bytes);
+    RWKV6's 82.4 ms and 1.63 ms."""
+    cfg = get_config(arch)
+    p = analytic.analytic_cost(cfg, analytic.ShapeSpec("prefill", 8000, 2))
+    d = analytic.analytic_cost(cfg, analytic.ShapeSpec("decode", 8064, 2))
+    for got, want in ((p["flops"], pre), (p["model_flops"], pre_model),
+                      (p["bytes"], pre_bytes), (d["bytes"], dec_bytes)):
+        assert math.isclose(got, want, rel_tol=1e-3), (got, want)
+    bounds = {"zamba2-7b": (0.4424, 6.005e-3), "rwkv6-3b": (0.08245, 1.632e-3)}[arch]
+    assert math.isclose(p["flops"] / mesh.PEAK_FLOPS_BF16, bounds[0], rel_tol=1e-3)
+    assert math.isclose(d["bytes"] / mesh.HBM_BW, bounds[1], rel_tol=1e-3)
+
+
 def test_unported_kinds_raise():
-    cfg = get_smoke("gemma-2b").replace(pattern=("mamba",))
+    cfg = get_smoke("gemma-2b").replace(pattern=("xattn",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         analytic.analytic_cost(cfg, analytic.ShapeSpec("prefill", 16, 1))
 
