@@ -142,10 +142,42 @@ its own:
    within ``HANDOFF_LOGITS_BOUND`` too; the weights freed; the shares of
    the analytic bound; K3 on the run's layer-0 ``ln_x`` input (2, 8000,
    2560) (warp per row) and its last position (split row);
-11. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
-   and K4's on all four LLM paths), error against its plain version,
+11. the encoder-decoder serving path: Whisper large-v3 at full size (32
+   encoder and 32 decoder layers, d_model 1,280, 20 heads of 64, LayerNorm,
+   sinusoidal positions, the plain-gelu MLP; 1,534,602,240 random bf16
+   parameters), 16 stub audio windows of 1,500 N(0, 1) frame embeddings,
+   64-token prompts and 64 decode steps, once cold and once timed (tokens
+   equal): K4 96 launches per prefill (32 non-causal over the frames in
+   the encoder, 32 causal self-attention and 32 cross-attention of 64
+   queries over 1,500 frames in the decoder), all bf16, none in decode;
+   K3 none (LayerNorm). The hand-off as for Zamba2, with the encoded
+   frames, each block's cross cache from its prefill read in its decode;
+   the logits printed (the init's G = 1 attention is a hard max). The
+   weights freed; the shares of the analytic bound; K4 on the run's
+   encoder layer-0 q, k, v (16, 1500, 20, 1, 64) and decoder layer-0
+   cross-attention q (16, 64, 20, 1, 64) over k, v (16, 1500, 20, 64):
+   within one bf16 ulp of the plain version on N(0, 1) inputs, and on the
+   run's own against float64 as for Moonlight (the line says whether one
+   ulp of the plain version holds there too), timed beside the bound and
+   ``scaled_dot_product_attention(is_causal=False)``;
+12. the vision-language serving path: Llama-3.2-Vision 90B at full width
+   (d_model 8,192, 64 heads of 128 over 8 KV heads, d_ff 28,672) cut to
+   20 layers (4 groups of 4 self-attention blocks and a gated
+   cross-attention block; 18,163,769,348 random bf16 parameters, every
+   gate set to 1.0), batch 2, 8,000-token prompts over 1,601 N(0, 1) patch
+   embeddings, 64 decode steps: K3 41 per prefill and per decode step, K4
+   20 per prefill (16 causal, 4 non-causal over the patches), all bf16;
+   the hand-off (its 4 self-attention blocks and the cross-attention
+   block) and logits printed; the weights freed; the shares of the
+   analytic bound; K3 on the run's layer-0 input (2, 8000, 8192) and its
+   last position (split row at both); K4 on the cross-attention block's
+   own q (2, 8000, 8, 8, 128) over k, v (2, 1601, 8, 128), as for
+   Whisper's, beside ``scaled_dot_product_attention(is_causal=False,
+   enable_gqa=True)``;
+13. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
+   and K4's on all six LLM paths), error against its plain version,
    times and bound;
-12. the last line, ``{"ok": true, "device": {...}}``.
+14. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; it does so too without CUDA, and when ``src/`` is missing (the
@@ -191,17 +223,21 @@ from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
 from repro_torch.kernels.topk_mask import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.topk_mask import ref as topk_ref  # noqa: E402
 from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16  # noqa: E402
-from repro_torch.launch.serve import (HYBRID_BATCH, HYBRID_DECODE,  # noqa: E402
+from repro_torch.launch.serve import (ENCDEC_BATCH, ENCDEC_DECODE,  # noqa: E402
+                                      ENCDEC_PROMPT, HYBRID_BATCH, HYBRID_DECODE,
                                       HYBRID_PROMPT, MAIN_BATCH, MAIN_DECODE,
                                       MAIN_PROMPT, MOE_BATCH, MOE_DECODE, MOE_PROMPT,
                                       RECURRENT_BATCH, RECURRENT_DECODE,
-                                      RECURRENT_PROMPT, hybrid_path_inputs,
-                                      main_path_inputs, moe_path_inputs,
-                                      recurrent_path_inputs, serve)
+                                      RECURRENT_PROMPT, VLM_BATCH, VLM_DECODE,
+                                      VLM_PROMPT, encdec_path_inputs,
+                                      hybrid_path_inputs, main_path_inputs,
+                                      moe_path_inputs, recurrent_path_inputs, serve,
+                                      vlm_path_inputs)
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.metrics.miou import miou  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.ssm import mamba2, rwkv6  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models.attention import _proj_qkv  # noqa: E402
 from repro_torch.models.layers import apply_norm, embed_apply  # noqa: E402
 from repro_torch.models.registry import build as build_model  # noqa: E402
@@ -1279,43 +1315,55 @@ def k4_compare(q, k, v, **kw) -> float:
     return err
 
 
-def expected_launches(cfg) -> tuple[int, int]:
-    """(K3 launches per prefill and per decode step, K4 launches per
-    prefill), from the block structure: an attention block's RMSNorms (2,
-    4 with post-norms) and one K4; a Mamba2 block's ln1 and inner norm; an
-    RWKV6 block's ln1, ln2 and ln_x (its block norms are K3 only where
-    the model's norm is RMSNorm); the shared attention block's 2 norms and
-    one K4 per group; the final norm. Decode never launches K4."""
+def expected_launches(cfg) -> tuple[int, int, int]:
+    """(K3 launches per prefill, K3 launches per decode step, K4 launches
+    per prefill), from the block structure: a self-attention block's
+    RMSNorms (2, 4 with post-norms) and one K4; an ``xattn`` block's 2
+    norms and one K4 (onto the memory); an ``attn_xattn`` block's 3 norms
+    and 2 K4; a Mamba2 block's ln1 and inner norm; an RWKV6 block's ln1,
+    ln2 and ln_x (block norms are K3 only where the model's norm is
+    RMSNorm); the shared attention block's 2 norms and one K4 per group;
+    the final norm. The encoder (``encoder_layers`` non-causal blocks and
+    its final norm) runs in prefill only, over the memory. Decode never
+    launches K4."""
     rms = int(cfg.norm == "rms")
+    per_attn = (4 if cfg.post_norm else 2) * rms
     k3 = k4 = 0
     for kind in cfg.pattern:
         if kind == "mamba":
             k3 += rms + 1
         elif kind == "rwkv":
             k3 += 2 * rms + 1
+        elif kind == "xattn":
+            k3, k4 = k3 + 2 * rms, k4 + 1
+        elif kind == "attn_xattn":
+            k3, k4 = k3 + 3 * rms, k4 + 2
         else:
-            k3 += (4 if cfg.post_norm else 2) * rms
-            k4 += 1
+            k3, k4 = k3 + per_attn, k4 + 1
     k3, k4 = k3 * cfg.num_groups, k4 * cfg.num_groups
     if cfg.shared_attn:
         k3 += 2 * rms * cfg.num_groups
         k4 += cfg.num_groups
-    return k3 + rms, k4
+    k3 += rms
+    encoder_k3 = (per_attn * cfg.encoder_layers + rms) if cfg.encoder_layers else 0
+    return k3 + encoder_k3, k3, k4 + cfg.encoder_layers
 
 
 def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
-    """One LLM at full width and depth: random bf16 weights drawn on the
-    card (``path_inputs(dev)``), a batch of random prompts, prefill, then
-    ``n_decode`` greedy decode steps through `launch.serve.serve`. A first,
-    cold run (the kernels' first launches, cuBLAS's first calls at these
-    shapes) goes before the run whose times and launch counts are kept:
-    K3 and K4 are counted from 0 just before it and read just after, and
-    must equal `expected_launches` (Gemma-2: K3 169 per prefill and per
-    decode step, K4 42 per prefill), all K4 launches on its bf16 route."""
+    """One LLM at full width (and depth, unless its config says a cut):
+    random bf16 weights drawn on the card (``path_inputs(dev)``), a batch of
+    random prompts (and a memory of stub embeddings for a model with
+    cross-attention), prefill, then ``n_decode`` greedy decode steps
+    through `launch.serve.serve`. A first, cold run (the kernels' first
+    launches, cuBLAS's first calls at these shapes) goes before the run
+    whose times and launch counts are kept: K3 and K4 are counted from 0
+    just before it and read just after, and must equal
+    `expected_launches` (Gemma-2: K3 169 per prefill and per decode step,
+    K4 42 per prefill), all K4 launches on its bf16 route."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, params, prompt = path_inputs(dev)
+    cfg, params, prompt, memory = path_inputs(dev)
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     n_params = sum(l.numel() for l in tree.leaves(params))
@@ -1332,6 +1380,10 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     if "rwkv" in cfg.pattern:
         extra += (f", RWKV6 {cfg.d_model // cfg.ssm_head_dim} wkv heads of "
                 f"{cfg.ssm_head_dim}, channel-mix d_ff {cfg.d_ff}, {cfg.norm} norms")
+    if memory is not None:
+        extra += (f", pattern {cfg.pattern} x {cfg.num_groups} groups, encoder layers "
+                  f"{cfg.encoder_layers}, {cfg.norm} norms, positions {cfg.pos}; memory "
+                  f"{tuple(memory.shape)} {memory.dtype} N(0, 1)")
     print(f"{label} path: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
           f"window {cfg.window_size}, softcaps {cfg.attn_logit_softcap}/"
@@ -1339,11 +1391,11 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
           f"{cfg.param_dtype}, drawn on the card in {draw_s:.1f} s "
           f"({torch.cuda.memory_allocated():,} bytes allocated); batch {batch}, "
           f"prompts of {prompt_len} tokens, {n_decode} decode steps")
-    cold = serve(cfg, params, prompt, n_decode, dev)
+    cold = serve(cfg, params, prompt, n_decode, dev, memory=memory)
     check(cold["finite"], f"{label}: every logit of the cold run finite")
     norm_ops.launches = 0
     attn_ops.reset_launches()
-    r = serve(cfg, params, prompt, n_decode, dev)
+    r = serve(cfg, params, prompt, n_decode, dev, memory=memory)
     launches = {"rms_norm": norm_ops.launches, "flash_attention": attn_ops.launches,
                 "flash_attention_by_route": dict(attn_ops.launches_by_route)}
     peak = torch.cuda.max_memory_allocated()
@@ -1358,7 +1410,7 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
           f"{r['launches']['decode']} over {n_decode} steps; total {launches} "
           f"(K4 by route: {launches['flash_attention_by_route']})")
     print(f"{label} first 16 generated tokens of row 0: {toks[0, :16].tolist()}")
-    n_norms, n_attn = expected_launches(cfg)
+    n_norms, n_decode_norms, n_attn = expected_launches(cfg)
     check(peak < capacity, f"{label}: peak memory under the card's")
     check(r["finite"], f"{label}: every logit finite")
     check(torch.equal(toks, cold["tokens"]),
@@ -1369,15 +1421,15 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     check(r["launches"]["prefill"] == {"rms_norm": n_norms, "flash_attention": n_attn},
           f"{label}: prefill launches {r['launches']['prefill']}, expected "
           f"{(n_norms, n_attn)}")
-    check(r["launches"]["decode"] == {"rms_norm": n_norms * n_decode,
+    check(r["launches"]["decode"] == {"rms_norm": n_decode_norms * n_decode,
                                       "flash_attention": 0},
           f"{label}: decode launches {r['launches']['decode']}")
-    check(launches["rms_norm"] == n_norms * (n_decode + 1)
+    check(launches["rms_norm"] == n_norms + n_decode_norms * n_decode
           and launches["flash_attention"] == n_attn, f"{label}: path launches")
     check(launches["flash_attention_by_route"] == {"bf16_wgmma": n_attn,
                                                    "f32_cuda_cores": 0},
           f"{label}: K4 routes {launches['flash_attention_by_route']}")
-    return cfg, params, prompt, r, cold, launches, peak
+    return cfg, params, prompt, memory, r, cold, launches, peak
 
 
 def analytic_shares(cfg, r, batch: int, prompt_len: int, n_decode: int, label: str):
@@ -1593,18 +1645,19 @@ def k4_compare_rows(q, k, v, **kw) -> float:
     return err
 
 
-def causal_attention_f64(q, k, v):
-    """The plain version's function (causal, no window or softcap) in
-    float64."""
-    S, hd = q.shape[1], q.shape[-1]
+def attention_f64(q, k, v, causal=True):
+    """The plain version's function (no window or softcap; causal or not,
+    Sq and Skv free) in float64."""
+    Sq, Skv, hd = q.shape[1], k.shape[1], q.shape[-1]
     s = torch.einsum("bqkgh,bskh->bkgqs", q.double(), k.double()) * hd**-0.5
-    s.masked_fill_(~torch.ones(S, S, dtype=torch.bool, device=q.device).tril(), -1e300)
+    if causal:
+        s.masked_fill_(~torch.ones(Sq, Skv, dtype=torch.bool, device=q.device).tril(), -1e300)
     p = torch.softmax(s, dim=-1)
     del s
     return torch.einsum("bkgqs,bskh->bqkgh", p, v.double())
 
 
-def k4_against_float64(q, k, v) -> dict:
+def k4_against_float64(q, k, v, causal=True) -> dict:
     """K4 and its plain version each against the same attention in float64,
     one batch row at a time: how many outputs each puts more than one bf16
     ulp (+ 1e-5) from the float64 value, and its largest error; and how
@@ -1613,13 +1666,13 @@ def k4_against_float64(q, k, v) -> dict:
     float32 evaluations differ from float64, and from each other, by far
     more than one bf16 ulp; K4 must then miss the float64 value no more
     often than its plain version does."""
-    got = attn_ops.flash_attention(q, k, v, causal=True, window=0, softcap=0.0)
+    got = attn_ops.flash_attention(q, k, v, causal=causal, window=0, softcap=0.0)
     out = dict(n=got.numel(), kernel_beyond_plain=0, kernel_beyond_f64=0,
                plain_beyond_f64=0, kernel_max_err_f64=0.0, plain_max_err_f64=0.0)
     for b in range(q.shape[0]):
         sl = slice(b, b + 1)
-        want = attn_ref.flash_attention_ref(q[sl], k[sl], v[sl], causal=True)
-        truth = causal_attention_f64(q[sl], k[sl], v[sl])
+        want = attn_ref.flash_attention_ref(q[sl], k[sl], v[sl], causal=causal)
+        truth = attention_f64(q[sl], k[sl], v[sl], causal)
         g, w = got[sl].double(), want.double()
         ulp_t = torch.exp2(torch.floor(torch.log2(truth.abs().clamp_min(1e-30))) - 7)
         ulp_w = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
@@ -1655,63 +1708,77 @@ def k3_run_phase(dev, label, norm_in, variants, bw, seed, what="layer-0 input"):
                 prefill=k3_time(x, w, bw), decode=k3_time(xd, w, bw, n=200))
 
 
-def k4_run_phase(dev, label, cfg, qkv, bw, bf16_flops, seed):
-    """K4 at a run's shape with G = 1, no softcap or window: on N(0, 1)
-    inputs within one bf16 ulp of its plain version (one batch row at a
-    time); on the run's own q, k, v, where the init leaves the softmax
+def k4_run_phase(dev, label, cfg, qkv, bw, bf16_flops, seed, causal=True,
+                 what="layer-0 q, k, v"):
+    """K4 at a run's shape without softcap or window (self-attention,
+    causal or not, or attention onto a memory: Sq != Skv, non-causal): on
+    N(0, 1) inputs within one bf16 ulp of its plain version (one batch row
+    at a time); on the run's own q, k, v, where the init leaves the softmax
     nearly a hard max, against attention in float64, missing it by more
-    than one ulp no more often than its plain version; then its time beside
-    its bound, the plain version and scaled_dot_product_attention
-    (is_causal=True), which computes the same function here."""
+    than one ulp no more often than its plain version (printed too: whether
+    it also lies within one ulp of the plain version everywhere, the
+    stronger check, which then holds); then its time beside its bound, the
+    plain version and scaled_dot_product_attention (is_causal as the
+    call, enable_gqa), which computes the same function here."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = qkv
-    kw = dict(causal=True, window=cfg.window_size, softcap=cfg.attn_logit_softcap)
-    check(kw == dict(causal=True, window=0, softcap=0.0), f"{label} path: K4 options {kw}")
-    B, S, KV, G, hd = q.shape
-    H = KV * G
+    check(cfg.window_size == 0 and cfg.attn_logit_softcap == 0.0,
+          f"{label} path: K4 window {cfg.window_size}, softcap {cfg.attn_logit_softcap}")
+    kw = dict(causal=causal, window=0, softcap=0.0)
+    B, Sq, KV, G, hd = q.shape
+    Skv, H = k.shape[1], KV * G
     qs, ks, vs = (torch.randn(t.shape, generator=g, device=dev).to(t.dtype) for t in qkv)
     err = k4_compare_rows(qs, ks, vs, **kw)
     del qs, ks, vs
     print(f"{label} K4 flash_attention within 1 bf16 ulp of its plain version at the run's "
-          f"shape {tuple(q.shape)} on N(0, 1) inputs (one batch row at a time): max abs "
-          f"err {err:.3e}")
-    f64 = k4_against_float64(q, k, v)
-    print(f"{label} K4 on the run's layer-0 q, k, v (|q| up to {float(q.abs().max()):.1f}, |k| "
-          f"{float(k.abs().max()):.1f}, |v| {float(v.abs().max()):.1f}: the init's fan-in "
-          f"of wq is its G axis, 1 here) against attention in float64: outputs more than "
+          f"shape {tuple(q.shape)} over {Skv} keys (causal {causal}) on N(0, 1) inputs (one "
+          f"batch row at a time): max abs err {err:.3e}")
+    f64 = k4_against_float64(q, k, v, causal)
+    held = ("one bf16 ulp of the plain version, and float64" if f64["kernel_beyond_plain"] == 0
+            else "float64")
+    print(f"{label} K4 on the run's {what} (|q| up to {float(q.abs().max()):.1f}, |k| "
+          f"{float(k.abs().max()):.1f}, |v| {float(v.abs().max()):.1f}; the init's fan-in "
+          f"of wq is its G axis, {G} here) against attention in float64: outputs more than "
           f"1 bf16 ulp (+1e-5) off: kernel {f64['kernel_beyond_f64']}, plain "
           f"{f64['plain_beyond_f64']} of {f64['n']:,}; largest error kernel "
           f"{f64['kernel_max_err_f64']:.3e}, plain {f64['plain_max_err_f64']:.3e}; kernel "
-          f"more than 1 ulp from plain: {f64['kernel_beyond_plain']}")
+          f"more than 1 ulp from plain: {f64['kernel_beyond_plain']}; held to: {held}")
     check(f64["kernel_beyond_f64"] <= f64["plain_beyond_f64"],
           f"{label} path: K4 misses the float64 attention more often than its plain version")
     ms = device_ms(lambda: attn_ops.flash_attention(q, k, v, **kw), n=10, reps=5)
     plain_ms = device_ms(lambda: attn_ref.flash_attention_ref(q, k, v, **kw), n=1, reps=3)
     torch.cuda.empty_cache()
-    q4 = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd).contiguous()
+    q4 = q.permute(0, 2, 3, 1, 4).reshape(B, H, Sq, hd).contiguous()
     k4, v4 = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_kw = dict(is_causal=causal, enable_gqa=G > 1)
     ours = attn_ops.flash_attention(q, k, v, **kw)
-    lib = sdpa(q4, k4, v4, is_causal=True).reshape(B, KV, G, S, hd).permute(0, 3, 1, 2, 4)
+    lib = sdpa(q4, k4, v4, **lib_kw).reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
     sdpa_err = float((ours.float() - lib.float()).abs().max())
     check(sdpa_err <= 1e-2 * float(ours.float().abs().max()),
           f"{label} K4 vs scaled_dot_product_attention: {sdpa_err}")
-    library_ms = device_ms(lambda: sdpa(q4, k4, v4, is_causal=True), n=10, reps=5)
+    library_ms = device_ms(lambda: sdpa(q4, k4, v4, **lib_kw), n=10, reps=5)
     del ours, lib, q4, k4, v4
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()  # q, o; k, v
-    flops = 4 * hd * B * H * live_pairs(S, 0)
-    bound_ms = 1e3 * max(nbytes / bw, flops / bf16_flops)
-    sfu_ms = 1e3 * B * H * live_pairs(S, 0) / SFU_PER_S  # the softmax's exp
+    pairs = B * H * (live_pairs(Sq, 0) if causal else Sq * Skv)
+    flops = 4 * hd * pairs
+    bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / bf16_flops
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    sfu_ms = 1e3 * pairs / SFU_PER_S  # the softmax's exp
     tflops = flops / ms / 1e9
-    print(f"{label} K4 flash_attention {tuple(q.shape)} bf16, no softcap or window: kernel "
-          f"{ms:.3f} ms, {tflops:.1f} TFLOP/s, {bound_ms / ms:.1%} of its bound "
-          f"{bound_ms:.4f} ms ({flops / 1e12:.4f} TFLOP at {bf16_flops / 1e12:.0f} "
-          f"TFLOP/s bf16; one exp per live score {sfu_ms:.4f} ms); plain {plain_ms:.3f} "
-          f"ms; scaled_dot_product_attention(is_causal=True) {library_ms:.3f} ms "
-          f"(kernel/SDPA {ms / library_ms:.2f}x; max abs diff {sdpa_err:.3e})")
-    return dict(k4_err=err, k4_f64=f64, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, transcendental_ms=sfu_ms, tflops=tflops,
-                shape=list(q.shape))
+    print(f"{label} K4 flash_attention {tuple(q.shape)} over {Skv} keys bf16, causal "
+          f"{causal}, no softcap or window: kernel {ms:.4f} ms, {tflops:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.1%} of its bound {bound_ms:.4f} ms by {bound_by} "
+          f"({flops / 1e12:.4f} TFLOP at {bf16_flops / 1e12:.0f} TFLOP/s bf16, "
+          f"{nbytes / 1e6:.1f} MB at {bw / 1e12} TB/s; one exp per live score {sfu_ms:.4f} "
+          f"ms); plain {plain_ms:.3f} ms; scaled_dot_product_attention({lib_kw}) "
+          f"{library_ms:.4f} ms (kernel/SDPA {ms / library_ms:.2f}x; max abs diff "
+          f"{sdpa_err:.3e})")
+    return dict(k4_err=err, k4_f64=f64, held=held, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                transcendental_ms=sfu_ms, tflops=tflops, shape=list(q.shape), kv_len=Skv,
+                causal=causal)
 
 
 def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
@@ -1724,8 +1791,10 @@ def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
 
 
 # ---------------------------------------------------------------------------
-# the recurrent serving paths: Zamba2-7B (Mamba2 blocks and a shared
-# attention block) and RWKV6-3B
+# the hand-off checks and the served paths after Moonlight: Zamba2-7B
+# (Mamba2 blocks and a shared attention block), RWKV6-3B, Whisper large-v3
+# (an encoder, cross-attention) and Llama-3.2-Vision (gated
+# cross-attention)
 # ---------------------------------------------------------------------------
 
 # The prefill's hand-off to decode, held in relative L2 norm at the last
@@ -1739,7 +1808,11 @@ def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
 # so `wq` is unscaled: |q| up to ~330) is nearly a hard max, and any
 # difference between two evaluations grows group by group, so that the
 # logits differ by ~0.75 in relative norm in float32 too, while every
-# block hands off within a few 1e-6 there.
+# block hands off within a few 1e-6 there. Whisper's and Llama-3.2-Vision's
+# logits are printed for the same reason (G = 1 and 8: |q| in the hundreds
+# and tens), their blocks held: the self-attention blocks and the
+# cross-attention blocks, whose decode reads the memory's K/V from their
+# own prefill.
 HANDOFF_BLOCK_BOUND = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 HANDOFF_LOGITS_BOUND = 5e-2
 
@@ -1749,24 +1822,41 @@ def rel_norm(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
+def pad_kv(cache: dict, length: int) -> dict:
+    """A block's prefill cache with its self-attention K/V (B, S, KV, hd)
+    zero-padded to ``length`` positions, so that decode can write
+    position S; the cross-attention and recurrent leaves as they are."""
+    out = dict(cache)
+    for key in ("k", "v"):
+        if key in cache:
+            t = cache[key]
+            out[key] = torch.zeros((t.shape[0], length) + t.shape[2:], dtype=t.dtype,
+                                   device=t.device)
+            out[key][:, :t.shape[1]] = t
+    return out
+
+
 @torch.no_grad()
-def handoff_check(cfg, params, prompt, label, hold_logits: bool) -> dict:
-    """The prefill's recurrent states (and the shared block's K/V) handed
-    to decode, on the card at the run's own size: (1) the logits of the
-    first decode step (position S) after the prefill against the last
-    logits of `forward` over the same S + 1 tokens; (2) group 0's blocks
-    one by one on the run's own inputs: each block's prefill over S
-    positions with ``want_cache``, then its decode of position S, against
-    the block over all S + 1 positions, in the block's contribution at
+def handoff_check(cfg, params, prompt, label, hold_logits: bool, memory=None) -> dict:
+    """The prefill's caches handed to decode (recurrent states, the shared
+    block's and the attention blocks' K/V, the cross-attention blocks' K/V
+    of the memory), on the card at the run's own size: (1) the logits of
+    the first decode step (position S) after the prefill against the last
+    logits of `forward` over the same S + 1 tokens and the same memory;
+    (2) group 0's blocks one by one on the run's own inputs: each block's
+    prefill over S positions with ``want_cache``, then its decode of
+    position S (reading the cross cache from that prefill), against the
+    block over all S + 1 positions, in the block's contribution at
     position S."""
     model = build_model(cfg)
     B, S = prompt.shape
-    logits, caches = make_prefill_step(model, S + 1)(params, {"tokens": prompt})
+    batch = {"tokens": prompt} if memory is None else {"tokens": prompt, "memory": memory}
+    logits, caches = make_prefill_step(model, S + 1)(params, batch)
     tok = torch.argmax(logits, dim=-1).to(prompt.dtype)
     _, caches, dec = make_serve_step(model)(params, caches, {"tokens": tok, "pos": S})
     del caches, logits
     tokens = torch.cat([prompt, tok], dim=1)
-    full, _ = model.forward(params, tokens)
+    full, _ = model.forward(params, tokens, memory)
     want = full[:, -1:].clone()
     del full
     out = {"logits": rel_norm(dec, want),
@@ -1776,6 +1866,7 @@ def handoff_check(cfg, params, prompt, label, hold_logits: bool) -> dict:
 
     pos = torch.arange(S + 1, device=prompt.device).expand(B, S + 1)
     x = embed_apply(cfg, params["embed"], tokens, pos)
+    mem = tfm._memory(cfg, params, memory)  # encoded, for an encoder-decoder
     gp = tfm.group_params(params, 0)
     blocks = {}
     shared = params.get("shared_attn")
@@ -1795,15 +1886,17 @@ def handoff_check(cfg, params, prompt, label, hold_logits: bool) -> dict:
         del k, v, kv
         x = y
     for i, kind in enumerate(cfg.pattern):
-        check(kind in tfm.RECURRENT_KINDS, f"{label}: hand-off of block kind {kind}")
+        check(kind not in tfm.MOE_KINDS, f"{label}: hand-off of block kind {kind}")
         p = gp[f"b{i}"]
-        y, _, _ = tfm.block_apply(cfg, kind, p, x, positions=pos)
+        y, _, _ = tfm.block_apply(cfg, kind, p, x, positions=pos, memory=mem)
         head, last = split(x)
-        _, _, c = tfm.block_apply(cfg, kind, p, head, positions=pos[:, :S], want_cache=True)
-        d, _ = tfm.block_decode(cfg, kind, p, last, c, S)
+        _, _, c = tfm.block_apply(cfg, kind, p, head, positions=pos[:, :S], memory=mem,
+                                  want_cache=True)
+        d, _ = tfm.block_decode(cfg, kind, p, last, pad_kv(c, S + 1), S)
         blocks[f"b{i}"] = rel_norm(d[:, 0] - x[:, S], y[:, S] - x[:, S])
+        del c
         x = y
-    del x, y
+    del x, y, mem
     torch.cuda.empty_cache()
     out["blocks"] = blocks
     bound = HANDOFF_BLOCK_BOUND[cfg.cdtype]
@@ -1839,7 +1932,7 @@ def first_norm_input(module, fn):
     return seen[0]
 
 
-def hybrid_layer_inputs(cfg, params, prompt):
+def hybrid_layer_inputs(cfg, params, prompt, memory=None):
     """The hybrid run's own data for K3 and K4, recomputed from the prompt:
     the shared block's q, k, v (the first thing group 0 runs), and group
     0's first Mamba2 inner norm input (B, S, d_inner)."""
@@ -1853,10 +1946,10 @@ def hybrid_layer_inputs(cfg, params, prompt):
     b0 = tfm.group_params(params, 0)["b0"]
     inner = first_norm_input(mamba2, lambda: tfm.block_apply(cfg, "mamba", b0, h,
                                                              positions=positions))
-    return inner, qkv
+    return dict(norm_in=(inner[0], inner[1].clone()), qkv=qkv)
 
 
-def recurrent_layer_inputs(cfg, params, prompt):
+def recurrent_layer_inputs(cfg, params, prompt, memory=None):
     """The recurrent run's own data for K3: layer 0's ln_x input (B, S,
     d_model), from its time-mix over the LayerNorm of the embeddings."""
     B, S = prompt.shape
@@ -1864,7 +1957,51 @@ def recurrent_layer_inputs(cfg, params, prompt):
     x = embed_apply(cfg, params["embed"], prompt, positions)
     b0 = tfm.group_params(params, 0)["b0"]
     h = apply_norm(cfg, x, b0["ln1"])
-    return first_norm_input(rwkv6, lambda: rwkv6.rwkv6_time_mix(cfg, b0["rwkv"]["tm"], h))
+    x, w = first_norm_input(rwkv6, lambda: rwkv6.rwkv6_time_mix(cfg, b0["rwkv"]["tm"], h))
+    return dict(norm_in=(x, w.clone()))
+
+
+def encdec_layer_inputs(cfg, params, prompt, memory):
+    """The encoder-decoder run's own data for K4, recomputed from its
+    prompt and frames: the encoder's layer-0 q, k, v (B, 1500, 20, 1, 64),
+    and the decoder's layer-0 cross-attention q (B, 64, 20, 1, 64) with k,
+    v (B, 1500, 20, 64) of the encoded frames (the input of that
+    cross-attention: the embeddings plus the block's self-attention)."""
+    B, S = prompt.shape
+    frames = memory.to(cfg.cdtype)
+    e0 = tfm.group_params(params["encoder"], 0)["b0"]
+    fpos = torch.arange(frames.shape[1], device=prompt.device).expand(B, frames.shape[1])
+    enc_qkv = _proj_qkv(cfg, e0["attn"], apply_norm(cfg, frames, e0["ln1"]), positions=fpos)
+    mem = tfm.encode(cfg, params, memory)
+    positions = torch.arange(S, device=prompt.device).expand(B, S)
+    x = embed_apply(cfg, params["embed"], prompt, positions)
+    b0 = tfm.group_params(params, 0)["b0"]
+    out, _ = attn_mod.self_attention(cfg, b0["attn"], apply_norm(cfg, x, b0["ln1"]), window=0,
+                                     positions=positions)
+    h = apply_norm(cfg, x + out, b0["lnx"])
+    cross_qkv = _proj_qkv(cfg, b0["xattn"], h, x_kv=mem, rope=False)
+    return dict(enc_qkv=enc_qkv, cross_qkv=cross_qkv)
+
+
+def vlm_layer_inputs(cfg, params, prompt, memory):
+    """The vision-language run's own data for K3 and K4, recomputed from
+    its prompt and patch embeddings: the input of layer 0's first norm
+    (B, 8000, 8192) with its weight, and the q, k, v of group 0's
+    cross-attention block (the fifth layer): q (B, 8000, 8, 8, 128) from
+    the output of the four self-attention blocks before it, k and v (B,
+    1601, 8, 128) from the memory."""
+    B, S = prompt.shape
+    positions = torch.arange(S, device=prompt.device).expand(B, S)
+    x = embed_apply(cfg, params["embed"], prompt, positions)
+    gp = tfm.group_params(params, 0)
+    norm_in = (x, gp["b0"]["ln1"].clone())
+    i = cfg.pattern.index("xattn")
+    for j in range(i):
+        x, _, _ = tfm.block_apply(cfg, cfg.pattern[j], gp[f"b{j}"], x, positions=positions)
+    p = gp[f"b{i}"]
+    cross_qkv = _proj_qkv(cfg, p["xattn"], apply_norm(cfg, x, p["ln1"]),
+                          x_kv=memory.to(cfg.cdtype), rope=False)
+    return dict(norm_in=norm_in, cross_qkv=cross_qkv)
 
 
 def free_weights(label, cfg, held: int) -> None:
@@ -1882,30 +2019,69 @@ def float32_handoff(dev, path_inputs, label) -> dict:
     """`handoff_check` on the path's weights before their rounding to bf16
     (the same draws from the same seed, and the same prompt), in float32:
     K4 takes its float32 route and K3 reads float32 rows."""
-    cfg, params, prompt = path_inputs(dev, param_dtype="float32", compute_dtype="float32")
+    cfg, params, prompt, _ = path_inputs(dev, param_dtype="float32", compute_dtype="float32")
     out = handoff_check(cfg, params, prompt, f"{label} (float32 weights)", hold_logits=False)
     del params, prompt
     torch.cuda.empty_cache()
     return out
 
 
-def recurrent_path(dev, path_inputs, n_decode, label, hold_logits):
-    """One recurrent path end to end (`llm_path`), its hand-off check, and
-    the run's own inputs for the kernel phases (the inner norm's; the
-    shared attention's q, k, v where there is one); the weights are
-    dropped, and checked freed, before it returns."""
-    cfg, params, prompt, r, cold, launches, peak = llm_path(dev, path_inputs, n_decode, label)
-    handoff = handoff_check(cfg, params, prompt, label, hold_logits)
-    if cfg.shared_attn:
-        norm_in, qkv = hybrid_layer_inputs(cfg, params, prompt)
-    else:
-        norm_in, qkv = recurrent_layer_inputs(cfg, params, prompt), None
-    norm_in = (norm_in[0], norm_in[1].clone())  # its weight outlives the params
+def served_path(dev, path_inputs, n_decode, label, hold_logits, layer_inputs):
+    """One path end to end (`llm_path`), its hand-off check (with the
+    path's memory, where it has one), and the run's own inputs for the
+    kernel phases, ``layer_inputs(cfg, params, prompt, memory)``: a dict of
+    tensors computed from the run's data (a norm's weight cloned, since it
+    outlives the params); the weights are dropped, and checked freed,
+    before it returns."""
+    cfg, params, prompt, memory, r, cold, launches, peak = llm_path(
+        dev, path_inputs, n_decode, label)
+    handoff = handoff_check(cfg, params, prompt, label, hold_logits, memory)
+    inputs = layer_inputs(cfg, params, prompt, memory)
     held = torch.cuda.memory_allocated()
-    del params, prompt
+    del params, prompt, memory
     free_weights(f"after the {label} path", cfg, held)
     return dict(cfg=cfg, run=r, cold=cold, launches=launches, peak=peak, handoff=handoff,
-                norm_in=norm_in, qkv=qkv)
+                **inputs)
+
+
+def encdec_phase(dev, bw, bf16_flops) -> dict:
+    """Whisper large-v3 end to end (`served_path`), the shares of the
+    analytic bound, then K4 on its encoder's and its decoder's
+    cross-attention's own q, k, v (non-causal; the cross one 64 queries
+    over 1,500 frames)."""
+    t0 = time.perf_counter()
+    enc = served_path(dev, encdec_path_inputs, ENCDEC_DECODE, "EncDec", False,
+                      encdec_layer_inputs)
+    enc["shares"] = analytic_shares(enc["cfg"], enc["run"], ENCDEC_BATCH, ENCDEC_PROMPT,
+                                    ENCDEC_DECODE, "EncDec")
+    enc["k4_encoder"] = k4_run_phase(dev, "EncDec encoder", enc["cfg"], enc.pop("enc_qkv"),
+                                     bw, bf16_flops, 18, causal=False,
+                                     what="encoder layer-0 q, k, v")
+    enc["k4_cross"] = k4_run_phase(dev, "EncDec cross", enc["cfg"], enc.pop("cross_qkv"), bw,
+                                   bf16_flops, 19, causal=False,
+                                   what="decoder layer-0 cross-attention q, k, v")
+    torch.cuda.empty_cache()
+    enc["seconds"] = time.perf_counter() - t0
+    return enc
+
+
+def vlm_phase(dev, bw, bf16_flops) -> dict:
+    """Llama-3.2-Vision at full width and 20 layers end to end
+    (`served_path`), the shares of the analytic bound, then K3 at 8,192
+    wide on its layer-0 input and K4 on its cross-attention block's own q,
+    k, v (8,000 queries over 1,601 patches)."""
+    t0 = time.perf_counter()
+    vlm = served_path(dev, vlm_path_inputs, VLM_DECODE, "VLM", False, vlm_layer_inputs)
+    vlm["shares"] = analytic_shares(vlm["cfg"], vlm["run"], VLM_BATCH, VLM_PROMPT, VLM_DECODE,
+                                    "VLM")
+    vlm["k3"] = k3_run_phase(dev, "VLM", vlm.pop("norm_in"), ("split_row", "split_row"), bw,
+                             20)
+    vlm["k4_cross"] = k4_run_phase(dev, "VLM cross", vlm["cfg"], vlm.pop("cross_qkv"), bw,
+                                   bf16_flops, 21, causal=False,
+                                   what="cross-attention block's q, k, v (group 0, layer 4)")
+    torch.cuda.empty_cache()
+    vlm["seconds"] = time.perf_counter() - t0
+    return vlm
 
 
 T_START = time.perf_counter()
@@ -1969,7 +2145,7 @@ def main() -> None:
     # phase's graphs and their memory pools go first
     batched.cache_clear()
     torch.cuda.empty_cache()
-    cfg, params, prompt, llm, llm_cold, llm_launches, peak = llm_path(
+    cfg, params, prompt, _, llm, llm_cold, llm_launches, peak = llm_path(
         dev, main_path_inputs, MAIN_DECODE)
     held = torch.cuda.memory_allocated()
     norm_in, qkv_local, qkv_global = llm_layer_inputs(cfg, params, prompt)
@@ -1989,7 +2165,7 @@ def main() -> None:
     print(f"MoE path: device memory allocated {held:,} bytes with {cfg.name}'s weights, "
           f"{freed:,} after freeing them ({gemma_bytes:,} bytes of weights)")
     check(held - freed >= gemma_bytes, f"{cfg.name}'s weights freed before the MoE path")
-    mcfg, mparams, mprompt, moe, moe_cold, moe_launches, moe_peak = llm_path(
+    mcfg, mparams, mprompt, _, moe, moe_cold, moe_launches, moe_peak = llm_path(
         dev, moe_path_inputs, MOE_DECODE, "MoE")
     moe_norm_in, moe_qkv = moe_layer_inputs(mcfg, mparams, mprompt)
     del mparams, mprompt
@@ -2003,7 +2179,8 @@ def main() -> None:
     # 9. the hybrid path (Zamba2-7B), once Moonlight's weights are gone;
     # then K3 on its Mamba2 inner norm input and K4 at head dim 112
     t_hyb = time.perf_counter()
-    hyb = recurrent_path(dev, hybrid_path_inputs, HYBRID_DECODE, "Hybrid", hold_logits=False)
+    hyb = served_path(dev, hybrid_path_inputs, HYBRID_DECODE, "Hybrid", False,
+                      hybrid_layer_inputs)
     hyb_shares = analytic_shares(hyb["cfg"], hyb["run"], HYBRID_BATCH, HYBRID_PROMPT,
                                  HYBRID_DECODE, "Hybrid")
     hk3 = k3_run_phase(dev, "Hybrid", hyb.pop("norm_in"), ("split_row", "split_row"), bw, 16,
@@ -2015,8 +2192,8 @@ def main() -> None:
 
     # 10. the recurrent path (RWKV6-3B); then K3 on its ln_x input
     t_rec = time.perf_counter()
-    rec = recurrent_path(dev, recurrent_path_inputs, RECURRENT_DECODE, "Recurrent",
-                         hold_logits=True)
+    rec = served_path(dev, recurrent_path_inputs, RECURRENT_DECODE, "Recurrent", True,
+                      recurrent_layer_inputs)
     rec_shares = analytic_shares(rec["cfg"], rec["run"], RECURRENT_BATCH, RECURRENT_PROMPT,
                                  RECURRENT_DECODE, "Recurrent")
     rk3 = k3_run_phase(dev, "Recurrent", rec.pop("norm_in"), ("warp_per_row", "split_row"), bw,
@@ -2024,7 +2201,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     rec_s = time.perf_counter() - t_rec
 
-    # 11. kernels line
+    # 11. the encoder-decoder path (Whisper large-v3); 12. the
+    # vision-language path (Llama-3.2-Vision at full width, 20 layers)
+    enc = encdec_phase(dev, bw, bf16_flops)
+    ek4, xk4, enc_shares, enc_s = (enc[k] for k in ("k4_encoder", "k4_cross", "shares",
+                                                    "seconds"))
+    vlm = vlm_phase(dev, bw, bf16_flops)
+    vk3, vk4, vlm_shares, vlm_s = (vlm[k] for k in ("k3", "k4_cross", "shares", "seconds"))
+
+    # 13. kernels line
     kernels = [
         dict(name="masked_adam_3d", route="cuda",
              source="src/repro_torch/csrc/masked_adam.cu",
@@ -2059,7 +2244,8 @@ def main() -> None:
         dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:25",
              launches=llm_launches["rms_norm"], moe_launches=moe_launches["rms_norm"],
-             max_abs_err=max(k3["err"], mk["k3_err"], hk3["err"], rk3["err"]), ms=k3["ms"],
+             max_abs_err=max(k3["err"], mk["k3_err"], hk3["err"], rk3["err"], vk3["err"]),
+             ms=k3["ms"],
              call_ms=k3["call_ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by="bytes", library_ms=k3["library_ms"],
              library_call="torch.nn.functional.rms_norm(x, (d,), weight=1+w, eps=1e-6)",
@@ -2071,7 +2257,10 @@ def main() -> None:
              **{f"moe_decode_{k}": v for k, v in mk["k3_decode"].items()},
              hybrid_launches=hyb["launches"]["rms_norm"],
              recurrent_launches=rec["launches"]["rms_norm"],
-             **{f"{name}_{k}": v for name, r in (("d7168", hk3), ("d2560", rk3))
+             encdec_launches=enc["launches"]["rms_norm"],
+             vlm_launches=vlm["launches"]["rms_norm"],
+             **{f"{name}_{k}": v for name, r in (("d7168", hk3), ("d2560", rk3),
+                                                 ("d8192", vk3))
                 for k, v in (dict(shape=r["shape"], variant=r["variant"],
                                   decode_variant=r["decode_variant"], err=r["err"],
                                   **r["prefill"],
@@ -2086,7 +2275,12 @@ def main() -> None:
              moe_launches_by_route=moe_launches["flash_attention_by_route"],
              hybrid_launches=hyb["launches"]["flash_attention"],
              hybrid_launches_by_route=hyb["launches"]["flash_attention_by_route"],
-             max_abs_err=max(k4["err"], mk["k4_err"], hk4["k4_err"]),
+             encdec_launches=enc["launches"]["flash_attention"],
+             encdec_launches_by_route=enc["launches"]["flash_attention_by_route"],
+             vlm_launches=vlm["launches"]["flash_attention"],
+             vlm_launches_by_route=vlm["launches"]["flash_attention_by_route"],
+             max_abs_err=max(k4["err"], mk["k4_err"], hk4["k4_err"], ek4["k4_err"],
+                             xk4["k4_err"], vk4["k4_err"]),
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by="operations", library_ms=k4["library_ms"],
              library_call="scaled_dot_product_attention(is_causal=True, "
@@ -2104,6 +2298,15 @@ def main() -> None:
              hd112_bound_ms=hk4["bound_ms"], hd112_library_ms=hk4["library_ms"],
              hd112_transcendental_ms=hk4["transcendental_ms"], hd112_tflops=hk4["tflops"],
              hd112_against_float64=hk4["k4_f64"],
+             **{f"{name}_{k}": r[k] for name, r in (("whisper_encoder", ek4),
+                                                    ("whisper_cross", xk4), ("vlm_cross", vk4))
+                for k in ("shape", "kv_len", "causal", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms", "transcendental_ms", "tflops", "held")},
+             **{f"{name}_against_float64": r["k4_f64"]
+                for name, r in (("whisper_encoder", ek4), ("whisper_cross", xk4),
+                                ("vlm_cross", vk4))},
+             memory_library_call="scaled_dot_product_attention(is_causal=False, "
+                                 "enable_gqa=G > 1) at the same shape",
              sass=sass),
     ]
     print(f"AMS summary: eager iteration busy share {trace['busy_share']:.3f} "
@@ -2133,7 +2336,17 @@ def main() -> None:
                                    f"{hk4['bound_ms']:.4f}); K3 at {tuple(hk3['shape'])} "
                                    f"{hk3['prefill']['ms']:.4f} ms"),
                                   ("Recurrent", rec, rec_s, f"; K3 at {tuple(rk3['shape'])} "
-                                   f"{rk3['prefill']['ms']:.4f} ms")):
+                                   f"{rk3['prefill']['ms']:.4f} ms"),
+                                  ("EncDec", enc, enc_s, f"; K4 encoder at "
+                                   f"{tuple(ek4['shape'])} {ek4['ms']:.4f} ms (SDPA "
+                                   f"{ek4['library_ms']:.4f}, bound {ek4['bound_ms']:.4f}), "
+                                   f"cross at {tuple(xk4['shape'])} over {xk4['kv_len']} "
+                                   f"{xk4['ms']:.4f} ms (SDPA {xk4['library_ms']:.4f}, bound "
+                                   f"{xk4['bound_ms']:.4f})"),
+                                  ("VLM", vlm, vlm_s, f"; K4 cross at {tuple(vk4['shape'])} "
+                                   f"over {vk4['kv_len']} {vk4['ms']:.4f} ms (SDPA "
+                                   f"{vk4['library_ms']:.4f}, bound {vk4['bound_ms']:.4f}); K3 "
+                                   f"at {tuple(vk3['shape'])} {vk3['prefill']['ms']:.4f} ms")):
         print(f"{label} summary: {r['cfg'].name} prefill {r['run']['prefill_ms']:.1f} ms "
               f"(cold {r['cold']['prefill_ms']:.1f}), decode "
               f"{r['run']['decode_ms_per_token']:.3f} ms/token (cold "
@@ -2143,10 +2356,16 @@ def main() -> None:
               f"{secs:.1f} s")
     print("HANDOFF " + json.dumps({hyb["cfg"].name: hyb["handoff"],
                                    f"{hyb['cfg'].name} float32": hyb["handoff_float32"],
-                                   rec["cfg"].name: rec["handoff"]}))
+                                   rec["cfg"].name: rec["handoff"],
+                                   enc["cfg"].name: enc["handoff"],
+                                   f"{vlm['cfg'].name} ({vlm['cfg'].num_layers} layers)":
+                                   vlm["handoff"]}))
     print("ANALYTIC_SHARES " + json.dumps({cfg.name: llm_shares, mcfg.name: moe_shares,
                                            hyb["cfg"].name: hyb_shares,
-                                           rec["cfg"].name: rec_shares}))
+                                           rec["cfg"].name: rec_shares,
+                                           enc["cfg"].name: enc_shares,
+                                           f"{vlm['cfg'].name} ({vlm['cfg'].num_layers} "
+                                           "layers)": vlm_shares}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

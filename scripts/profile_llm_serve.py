@@ -3,14 +3,20 @@
 
     PYTHONPATH=src python3 scripts/profile_llm_serve.py
 
-The four full-size paths of `repro_torch.launch.serve`, one after the
-other: the main path (`main_path_inputs`, `MAIN_DECODE`: Gemma-2 9B),
-the MoE path (`moe_path_inputs`, `MOE_DECODE`: Moonlight-16B-A3B), the
-hybrid path (`hybrid_path_inputs`, `HYBRID_DECODE`: Zamba2-7B) and the
-recurrent path (`recurrent_path_inputs`, `RECURRENT_DECODE`: RWKV6-3B),
-each at full width and depth with random bf16 weights drawn on the card
-from seed 0, a batch of 2 random prompts of 8,000 tokens, one prefill
-into a cache of 8,064 positions, then 64 greedy decode steps, through
+The six full-size paths of `repro_torch.launch.serve`, one after the
+other: the main path
+(`main_path_inputs`, `MAIN_DECODE`: Gemma-2 9B), the MoE path
+(`moe_path_inputs`, `MOE_DECODE`: Moonlight-16B-A3B), the hybrid path
+(`hybrid_path_inputs`, `HYBRID_DECODE`: Zamba2-7B), the recurrent path
+(`recurrent_path_inputs`, `RECURRENT_DECODE`: RWKV6-3B), each at full
+width and depth with a batch of 2 random prompts of 8,000 tokens, the
+encoder-decoder path (`encdec_path_inputs`, `ENCDEC_DECODE`: Whisper
+large-v3, 16 stub audio windows of 1,500 frames, 64-token prompts) and
+the vision-language path (`vlm_path_inputs`, `VLM_DECODE`:
+Llama-3.2-Vision at full width and 20 layers, 2 prompts of 8,000 tokens
+over 1,601 patch embeddings); random bf16 weights drawn on the card from
+seed 0, one prefill (the encoder included) into a cache of the prompt
+and 64 more positions, then 64 greedy decode steps, through
 `make_prefill_step` and `make_serve_step`. A path's weights are freed
 before the next is drawn. The prefill and the decode steps are each run
 once untraced as a warm-up and once more untraced for their wall times,
@@ -42,10 +48,12 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from repro_torch.launch.serve import (HYBRID_DECODE, MAIN_DECODE,  # noqa: E402
-                                      MOE_DECODE, RECURRENT_DECODE,
+from repro_torch.launch.serve import (ENCDEC_DECODE, HYBRID_DECODE,  # noqa: E402
+                                      MAIN_DECODE, MOE_DECODE, RECURRENT_DECODE,
+                                      VLM_DECODE, encdec_path_inputs,
                                       hybrid_path_inputs, main_path_inputs,
-                                      moe_path_inputs, recurrent_path_inputs)
+                                      moe_path_inputs, recurrent_path_inputs,
+                                      vlm_path_inputs)
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models.registry import build  # noqa: E402
 from repro_torch.models.ssm import mamba2, rwkv6  # noqa: E402
@@ -141,15 +149,17 @@ class ScanClock:
 
 def profile_path(path_inputs, n_decode: int):
     dev = torch.device("cuda", 0)
-    cfg, params, prompt = path_inputs(dev)
+    cfg, params, prompt, memory = path_inputs(dev)
     model = build(cfg)
     B, S = prompt.shape
     prefill_step = make_prefill_step(model, S + n_decode)
     serve_step = make_serve_step(model)
-    print(f"{cfg.name}: {model.num_params():,} params in {cfg.param_dtype}")
+    batch = {"tokens": prompt} if memory is None else {"tokens": prompt, "memory": memory}
+    print(f"{cfg.name}: {model.num_params():,} params in {cfg.param_dtype} ({cfg.num_layers} "
+          f"layers{'' if memory is None else f'; memory {tuple(memory.shape)}'})")
 
     def prefill():
-        return prefill_step(params, {"tokens": prompt})
+        return prefill_step(params, batch)
 
     def decode(caches, tok):
         for i in range(n_decode):
@@ -201,7 +211,9 @@ def main():
     for path_inputs, n_decode in ((main_path_inputs, MAIN_DECODE),
                                   (moe_path_inputs, MOE_DECODE),
                                   (hybrid_path_inputs, HYBRID_DECODE),
-                                  (recurrent_path_inputs, RECURRENT_DECODE)):
+                                  (recurrent_path_inputs, RECURRENT_DECODE),
+                                  (encdec_path_inputs, ENCDEC_DECODE),
+                                  (vlm_path_inputs, VLM_DECODE)):
         profile_path(path_inputs, n_decode)
         torch.cuda.empty_cache()
 

@@ -4,12 +4,15 @@ package's `configs/__init__.py`.
 Each ported architecture has a module exporting ``full()`` (the exact
 published config) and ``smoke()`` (a reduced same-family variant used by
 CPU tests), copied from the JAX package. ``ALIASES`` keeps the JAX
-package's external spellings. The dense, MoE, hybrid (Zamba2: Mamba2
-and a shared attention block) and RWKV6 architectures are ported (Llama
-3 405B, Mixtral 8x22B and Llama-4 Maverick do not fit one card at full
-size; their smoke configs run on the CPU); the others need
-cross-attention and the encoder, which the port does not have yet
-(ROADMAP §1 item 7), and asking for one raises ``NotImplementedError``.
+package's external spellings. Every LLM architecture of the JAX package
+is here: dense, MoE, hybrid (Zamba2: Mamba2 and a shared attention
+block), RWKV6, the vision-language Llama-3.2-Vision (gated
+cross-attention onto stub patch embeddings) and the encoder-decoder
+Whisper large-v3. Llama 3 405B, Mixtral 8x22B, Llama-4 Maverick and
+Llama-3.2-Vision 90B do not fit one card at full size (the last runs
+there at full width with fewer layers); their smoke configs run on the
+CPU. ``ams-seg`` names the segmentation student, which is built by
+`models.seg`, not here; asking for it raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ ARCH_IDS = (
     "llama4_maverick_400b_a17b",
     "zamba2_7b",
     "rwkv6_3b",
+    "llama32_vision_90b",
+    "whisper_large_v3",
 )
 
 # external spelling (--arch flag) -> module name
@@ -47,10 +52,7 @@ ALIASES = {
 def _module(name: str):
     name = ALIASES.get(name, name)
     if name not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP §1 item 7: "
-            f"cross-attention and the encoder); ported: "
-            f"{', '.join(ARCH_IDS)}")
+        raise ValueError(f"unknown architecture {name!r}; known: {', '.join(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -11,7 +11,7 @@ from repro_torch.models.registry import Model
 
 def make_prefill_step(model: Model, cache_len: int):
     def prefill_step(params, batch):
-        return model.prefill(params, batch["tokens"], cache_len)
+        return model.prefill(params, batch["tokens"], cache_len, batch.get("memory"))
 
     return prefill_step
 

@@ -1,5 +1,5 @@
-"""Attention: GQA/MQA/MHA self-attention, full sequence and one-token
-decode (the JAX package's `models/attention.py`, dense parts).
+"""Attention: GQA/MQA/MHA self- and cross-attention, full sequence and
+one-token decode (the JAX package's `models/attention.py`).
 
 Projection weights keep heads factored as (kv_heads, q_per_group), as
 the JAX package lays them out:
@@ -9,11 +9,14 @@ the JAX package lays them out:
     wv: (d, KV, hd)
     wo: (KV, G, hd, d)
 
-The full-sequence path goes through the flash-attention wrapper
-(`repro_torch.kernels.flash_attention`): the hand-written kernel on the
-card, its plain version on the CPU. One-token decode stays plain torch
-(einsum and softmax), as the JAX package computes it outside any Pallas
-kernel. Cross-attention is not ported yet (ROADMAP §1 item 7).
+The full-sequence paths, self-attention and cross-attention onto a
+memory of Sm positions (non-causal, no rope, Sq != Sm), go through the
+flash-attention wrapper (`repro_torch.kernels.flash_attention`): the
+hand-written kernel on the card, its plain version on the CPU. One-token
+decode, of either kind, stays plain torch (einsum and softmax in
+float32), as the JAX package computes it outside any Pallas kernel; a
+cross-attention block reads the memory's K/V that the prefill computed
+once (`precompute_cross_cache`).
 """
 from __future__ import annotations
 
@@ -37,10 +40,13 @@ def attn_metas(cfg: ModelConfig) -> dict:
     }
 
 
-def _proj_qkv(cfg: ModelConfig, p: dict, x, positions=None, rope: bool = True):
+def _proj_qkv(cfg: ModelConfig, p: dict, x, x_kv=None, positions=None,
+              rope: bool = True):
+    """q from x, k and v from x_kv (x itself for self-attention)."""
+    x_kv = x if x_kv is None else x_kv
     q = torch.einsum("bsd,dkgh->bskgh", x, p["wq"])
-    k = torch.einsum("bsd,dkh->bskh", x, p["wk"])
-    v = torch.einsum("bsd,dkh->bskh", x, p["wv"])
+    k = torch.einsum("bsd,dkh->bskh", x_kv, p["wk"])
+    v = torch.einsum("bsd,dkh->bskh", x_kv, p["wv"])
     if rope and cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -59,6 +65,15 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, window: int, positions,
                         softcap=cfg.attn_logit_softcap)
     out = torch.einsum("bskgh,kghd->bsd", o, p["wo"])
     return out, (k, v)
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x, memory):
+    """Cross attention of x (B, S, d) onto the memory (B, Sm, d): no causal
+    mask, no rope (the memory has its own implicit positions)."""
+    q, k, v = _proj_qkv(cfg, p, x, x_kv=memory, rope=False)
+    o = flash_attention(q, k, v, causal=False, window=0,
+                        softcap=cfg.attn_logit_softcap)
+    return torch.einsum("bskgh,kghd->bsd", o, p["wo"])
 
 
 def decode_self_attention(cfg: ModelConfig, p: dict, x, cache, pos: int, *,
@@ -97,3 +112,23 @@ def decode_self_attention(cfg: ModelConfig, p: dict, x, cache, pos: int, *,
                      cache["v"].to(torch.float32)).to(x.dtype)
     out = torch.einsum("bskgh,kghd->bsd", o, p["wo"])
     return out, cache
+
+
+def decode_cross_attention(cfg: ModelConfig, p: dict, x, mem_cache):
+    """Decode-time cross attention against the memory's K/V from the
+    prefill; mem_cache: dict(k, v) each (B, Sm, KV, hd), only read."""
+    q = torch.einsum("bsd,dkgh->bskgh", x, p["wq"])
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.to(torch.float32),
+                     mem_cache["k"].to(torch.float32))
+    s = s * (cfg.resolved_head_dim**-0.5)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", pr,
+                     mem_cache["v"].to(torch.float32)).to(x.dtype)
+    return torch.einsum("bskgh,kghd->bsd", o, p["wo"])
+
+
+def precompute_cross_cache(cfg: ModelConfig, p: dict, memory):
+    """The memory's K and V (B, Sm, KV, hd), computed once at prefill."""
+    k = torch.einsum("bsd,dkh->bskh", memory, p["wk"])
+    v = torch.einsum("bsd,dkh->bskh", memory, p["wv"])
+    return {"k": k, "v": v}

@@ -1,5 +1,5 @@
-"""Primitive layers: norms, rotary embeddings, MLPs, embedding/unembedding
-(the JAX package's `models/layers.py`).
+"""Primitive layers: norms, rotary and sinusoidal positions, MLPs,
+embedding/unembedding (the JAX package's `models/layers.py`).
 
 Convention: every norm stores its scale as an *offset* w with effective
 scale (1 + w) (zeros-init). RMSNorm goes through the hand-written kernel
@@ -7,6 +7,8 @@ scale (1 + w) (zeros-init). RMSNorm goes through the hand-written kernel
 CPU; LayerNorm stays plain.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -17,24 +19,6 @@ from repro_torch.models.common import ModelConfig, ParamMeta, dense_meta
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
-
-
-def _check_pos(cfg: ModelConfig):
-    """The ported configs use RoPE or no positions; learned and sinusoidal
-    positions wait for the architectures that use them (cross-attention
-    and the encoder)."""
-    if cfg.pos not in ("rope", "none"):
-        raise NotImplementedError(
-            f"pos={cfg.pos!r} is not ported yet (ROADMAP §1 item 7)")
-
-
-def _check_mlp(cfg: ModelConfig):
-    """An MLP of the ported configs is gated (GeGLU, SwiGLU); the
-    plain-gelu MLP waits for the encoder. Checked where an MLP is built,
-    so a config that names gelu but builds no MLP (RWKV6) runs."""
-    if cfg.mlp_act not in ("swiglu", "geglu"):
-        raise NotImplementedError(
-            f"mlp_act={cfg.mlp_act!r} is not ported yet (ROADMAP §1 item 7)")
 
 
 def rms_norm(x, w, eps=1e-6):
@@ -94,10 +78,15 @@ def softcap(x, cap: float):
 # ---------------------------------------------------------------------------
 
 
+def _gated(cfg: ModelConfig) -> bool:
+    return cfg.mlp_act in ("swiglu", "geglu")
+
+
 def mlp_metas(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d, ff = cfg.d_model, (d_ff or cfg.d_ff)
-    _check_mlp(cfg)
-    return {"wg": dense_meta(d, ff), "wu": dense_meta(d, ff), "wd": dense_meta(ff, d)}
+    if _gated(cfg):
+        return {"wg": dense_meta(d, ff), "wu": dense_meta(d, ff), "wd": dense_meta(ff, d)}
+    return {"wu": dense_meta(d, ff), "wd": dense_meta(ff, d)}  # plain gelu (whisper)
 
 
 def glu_act(cfg: ModelConfig, g):
@@ -107,9 +96,12 @@ def glu_act(cfg: ModelConfig, g):
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, x):
-    """The gated MLP of the ported configs: act(x @ wg) * (x @ wu) @ wd."""
-    _check_mlp(cfg)
-    return (glu_act(cfg, x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    """The gated MLP, act(x @ wg) * (x @ wu) @ wd, or the plain one,
+    gelu(x @ wu) @ wd, with the tanh-approximated GELU as in the JAX
+    package (torch's default erf form differs by up to ~1e-3)."""
+    if _gated(cfg):
+        return (glu_act(cfg, x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]
 
 
 # ---------------------------------------------------------------------------
@@ -117,19 +109,36 @@ def mlp_apply(cfg: ModelConfig, p: dict, x):
 # ---------------------------------------------------------------------------
 
 
+def sinusoidal_pos(positions, d_model: int, dtype=torch.float32):
+    """The classic sinusoidal encoding, [sin, cos] concatenated; positions:
+    (..., seq). The frequency denominator is max(half - 1, 1), as in the
+    JAX package."""
+    half = d_model // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
+                      * (math.log(10000.0) / max(half - 1, 1)))
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 def embed_metas(cfg: ModelConfig) -> dict:
-    _check_pos(cfg)
-    return {"tok": ParamMeta((cfg.vocab_size, cfg.d_model), init="embed")}
+    m = {"tok": ParamMeta((cfg.vocab_size, cfg.d_model), init="embed")}
+    if cfg.pos == "learned":
+        m["pos"] = ParamMeta((cfg.max_position, cfg.d_model), init="embed")
+    return m
 
 
 def embed_apply(cfg: ModelConfig, p: dict, tokens, positions=None):
-    """Token embedding; positions enter through RoPE in attention."""
-    _check_pos(cfg)
+    """Token embedding, plus learned or sinusoidal positions where the
+    config has them (RoPE enters in attention instead)."""
     x = p["tok"][tokens].to(cfg.cdtype)
     if cfg.embed_scale:
         # the scale is rounded to the compute dtype first, as the JAX
         # package does (sqrt(3584) is 60.0 in bf16, not 59.87)
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.cdtype, device=x.device)
+    if cfg.pos == "learned":
+        x = x + p["pos"][positions].to(cfg.cdtype)
+    elif cfg.pos == "sinusoidal":
+        x = x + sinusoidal_pos(positions, cfg.d_model, cfg.cdtype)
     return x
 
 

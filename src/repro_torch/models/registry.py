@@ -1,5 +1,5 @@
 """Model facade: bundles a config with its parameter machinery and step
-functions (the JAX package's `models/registry.py`, dense and MoE stacks).
+functions (the JAX package's `models/registry.py`).
 
 The parameter tree keeps the JAX package's layout and key names (``wq``
 is (d, KV, G, hd), blocks are stacked under ``groups/b{i}``), so
@@ -40,23 +40,23 @@ class Model:
         return param_count(self.metas())
 
     # --- steps ---
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, memory=None):
         """(logits, aux): the MoE load-balance loss beside the logits, as in
-        the JAX package."""
-        return tfm.forward(self.cfg, params, tokens)
+        the JAX package. ``memory`` (B, Sm, d) feeds cross-attention."""
+        return tfm.forward(self.cfg, params, tokens, memory)
 
-    def prefill(self, params, tokens, cache_len):
-        return tfm.prefill(self.cfg, params, tokens, cache_len)
+    def prefill(self, params, tokens, cache_len, memory=None):
+        return tfm.prefill(self.cfg, params, tokens, cache_len, memory)
 
     def decode_step(self, params, caches, tokens, pos):
         return tfm.decode_step(self.cfg, params, caches, tokens, pos)
 
     # --- caches ---
-    def cache_metas(self, batch, seq):
-        return tfm.cache_metas(self.cfg, batch, seq)
+    def cache_metas(self, batch, seq, mem_len=0):
+        return tfm.cache_metas(self.cfg, batch, seq, mem_len)
 
-    def init_cache(self, batch, seq, dtype=None, device="cuda"):
-        return tfm.init_cache(self.cfg, batch, seq, dtype, resolve_device(device))
+    def init_cache(self, batch, seq, mem_len=0, dtype=None, device="cuda"):
+        return tfm.init_cache(self.cfg, batch, seq, mem_len, dtype, resolve_device(device))
 
 
 def build(cfg: ModelConfig) -> Model:

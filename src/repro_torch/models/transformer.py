@@ -1,17 +1,23 @@
 """Generic decoder stack (the JAX package's `models/transformer.py`).
 
-Every architecture is a repeated `pattern` of block kinds. The port runs
+Every architecture is a repeated `pattern` of block kinds:
 
     attn        full causal self-attention + MLP
     attn_local  sliding-window causal self-attention + MLP
-    attn_nc     non-causal self-attention + MLP
+    attn_nc     non-causal self-attention + MLP (whisper encoder)
+    xattn       gated cross-attention (onto stub frontend memory) + MLP
+    attn_xattn  self-attn + cross-attn + MLP in one block (whisper decoder)
     moe         full causal self-attention + MoE
     moe_local   sliding-window self-attention + MoE (mixtral)
     mamba       Mamba2 SSD block (no separate MLP)
     rwkv        RWKV6 time-mix + channel-mix
 
-and raises ``NotImplementedError`` for the others (``xattn``,
-``attn_xattn``) and the encoder, which wait for ROADMAP §1 item 7.
+An unknown kind raises ``ValueError``, as in the JAX package.
+
+`cfg.encoder_layers` (whisper): an encoder of that many ``attn_nc``
+blocks runs over the memory (stub frame embeddings) before the decoder
+stack, which attends to its output; without an encoder the memory goes
+to the cross-attention as it is, cast to the compute dtype.
 
 `cfg.shared_attn` (zamba2): one *shared* attention block (weights outside
 the groups) is applied at the start of every group; its KV caches are
@@ -24,10 +30,12 @@ indexing each leaf; there is no backward pass, so there is no remat. The
 MoE blocks' load-balance losses are summed over the stack as the JAX
 package sums them: per group, then over the groups.
 
-Caches: attention blocks keep K/V, a Mamba2 block its SSM state and the
-last conv inputs, an RWKV6 block its wkv state and the last normed inputs
-of its time- and channel-mix (`cache_dtype`: the recurrent states in
-float32, the rest in the model dtype). `prefill` hands the chunked
+Caches: attention blocks keep K/V, cross-attention blocks the memory's
+K/V (``xk``, ``xv``: computed once at prefill, only read in decode, never
+in a ring), a Mamba2 block its SSM state and the last conv inputs, an
+RWKV6 block its wkv state and the last normed inputs of its time- and
+channel-mix (`cache_dtype`: the recurrent states in float32, the rest in
+the model dtype). `prefill` hands the chunked
 scans' final states to decode; `decode_step` writes every cache in place.
 """
 from __future__ import annotations
@@ -52,21 +60,6 @@ DENSE_KINDS = ("attn", "attn_local", "attn_nc")
 MOE_KINDS = ("moe", "moe_local")
 ATTN_KINDS = DENSE_KINDS + MOE_KINDS
 RECURRENT_KINDS = ("mamba", "rwkv")
-PORTED_KINDS = ATTN_KINDS + RECURRENT_KINDS
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP §1 item 7: cross-attention "
-        "(xattn, attn_xattn) and the encoder)")
-
-
-def _check_ported(cfg: ModelConfig):
-    for kind in cfg.pattern:
-        if kind not in PORTED_KINDS:
-            raise _not_ported(f"block kind {kind!r}")
-    if cfg.encoder_layers:
-        raise _not_ported("encoder_layers")
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +73,14 @@ def block_metas(cfg: ModelConfig, kind: str) -> dict:
         return {"ln1": norm_meta(d), "mamba": mamba2.mamba2_metas(cfg)}
     if kind == "rwkv":
         return {"ln1": norm_meta(d), "ln2": norm_meta(d), "rwkv": rwkv6.rwkv6_metas(cfg)}
+    if kind == "xattn":
+        return {"ln1": norm_meta(d), "xattn": attn.attn_metas(cfg),
+                "ln2": norm_meta(d), "mlp": mlp_metas(cfg),
+                "gate": ParamMeta((1,), init="zeros")}
+    if kind == "attn_xattn":
+        return {"ln1": norm_meta(d), "attn": attn.attn_metas(cfg),
+                "lnx": norm_meta(d), "xattn": attn.attn_metas(cfg),
+                "ln2": norm_meta(d), "mlp": mlp_metas(cfg)}
     if kind in ATTN_KINDS:
         m = {"ln1": norm_meta(d), "attn": attn.attn_metas(cfg), "ln2": norm_meta(d)}
         if kind in MOE_KINDS:
@@ -90,11 +91,10 @@ def block_metas(cfg: ModelConfig, kind: str) -> dict:
             m["ln1_post"] = norm_meta(d)
             m["ln2_post"] = norm_meta(d)
         return m
-    raise _not_ported(f"block kind {kind!r}")
+    raise ValueError(f"unknown block kind {kind}")
 
 
 def model_metas(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
     groups = {
         f"b{i}": stack_group(block_metas(cfg, kind), cfg.num_groups)
         for i, kind in enumerate(cfg.pattern)
@@ -105,6 +105,11 @@ def model_metas(cfg: ModelConfig) -> dict:
         d = cfg.d_model
         m["shared_attn"] = {"ln1": norm_meta(d), "attn": attn.attn_metas(cfg),
                             "ln2": norm_meta(d), "mlp": mlp_metas(cfg)}
+    if cfg.encoder_layers:
+        m["encoder"] = {
+            "groups": {"b0": stack_group(block_metas(cfg, "attn_nc"), cfg.encoder_layers)},
+            "final_norm": norm_meta(cfg.d_model),
+        }
     return m
 
 
@@ -141,9 +146,38 @@ def _no_aux(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def block_apply(cfg: ModelConfig, kind: str, p: dict, x, *, positions,
+def _gate(p: dict, x):
+    """An ``xattn`` block's output scale: tanh(gate) in float32, cast to
+    x's dtype (0 at init, so the block starts as its MLP alone)."""
+    return torch.tanh(p["gate"].to(torch.float32)).to(x.dtype)
+
+
+def _cross_cache(cfg: ModelConfig, p: dict, memory) -> dict:
+    xc = attn.precompute_cross_cache(cfg, p["xattn"], memory)
+    return {"xk": xc["k"], "xv": xc["v"]}
+
+
+def block_apply(cfg: ModelConfig, kind: str, p: dict, x, *, positions, memory=None,
                 want_cache: bool = False):
-    """Returns (x, aux_loss, cache_or_None)."""
+    """Returns (x, aux_loss, cache_or_None). ``memory`` (B, Sm, d) feeds
+    the cross-attention blocks."""
+    if kind == "xattn":
+        h = apply_norm(cfg, x, p["ln1"])
+        x = x + _gate(p, x) * attn.cross_attention(cfg, p["xattn"], h, memory)
+        h = apply_norm(cfg, x, p["ln2"])
+        x = x + mlp_apply(cfg, p["mlp"], h)
+        return x, _no_aux(x), (_cross_cache(cfg, p, memory) if want_cache else None)
+    if kind == "attn_xattn":
+        h = apply_norm(cfg, x, p["ln1"])
+        out, kv = attn.self_attention(cfg, p["attn"], h, window=0, positions=positions)
+        x = x + out
+        h = apply_norm(cfg, x, p["lnx"])
+        x = x + attn.cross_attention(cfg, p["xattn"], h, memory)
+        h = apply_norm(cfg, x, p["ln2"])
+        x = x + mlp_apply(cfg, p["mlp"], h)
+        cache = ({"k": kv[0], "v": kv[1], **_cross_cache(cfg, p, memory)}
+                 if want_cache else None)
+        return x, _no_aux(x), cache
     if kind == "mamba":
         h = apply_norm(cfg, x, p["ln1"])
         if want_cache:
@@ -164,7 +198,7 @@ def block_apply(cfg: ModelConfig, kind: str, p: dict, x, *, positions,
         )
         return x, _no_aux(x), cache
     if kind not in ATTN_KINDS:
-        raise _not_ported(f"block kind {kind!r}")
+        raise ValueError(f"unknown block kind {kind}")
     x, cache = _attn_sub(cfg, p, x, kind, positions, want_cache)
     h = apply_norm(cfg, x, p["ln2"])
     out, aux = _ffn(cfg, kind, p, h)
@@ -190,7 +224,7 @@ def group_params(params: dict, g: int) -> dict:
     return tree.tree_map(lambda l: l[g], params["groups"])
 
 
-def _stack_forward(cfg: ModelConfig, params: dict, x, positions):
+def _stack_forward(cfg: ModelConfig, params: dict, x, positions, memory=None):
     """Decoder trunk (no embed/unembed). Returns (x, total_aux): each
     group's blocks' aux losses summed, then the groups' sums."""
     auxs = []
@@ -201,7 +235,8 @@ def _stack_forward(cfg: ModelConfig, params: dict, x, positions):
         if shared is not None:
             x, _ = _shared_attn_apply(cfg, shared, x, positions)
         for i, kind in enumerate(cfg.pattern):
-            x, a, _ = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions)
+            x, a, _ = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions,
+                                  memory=memory)
             aux = aux + a
         auxs.append(aux)
     return x, torch.stack(auxs).sum()
@@ -211,14 +246,39 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
-def forward(cfg: ModelConfig, params: dict, tokens):
-    """tokens: (B,S) int. Returns (logits (B,S,V), aux): aux is the MoE
-    load-balance loss summed over the stack (0 for dense stacks)."""
-    _check_ported(cfg)
+def encode(cfg: ModelConfig, params: dict, frames):
+    """Whisper-style encoder over stub frame embeddings (B, Sf, d): the
+    ``attn_nc`` blocks, then the encoder's final norm. No positions are
+    added to the frames: the blocks apply rope only when ``pos == "rope"``,
+    as the JAX package's do."""
+    enc = params["encoder"]
+    positions = _positions(frames.shape[0], frames.shape[1], frames.device)
+    x = frames.to(cfg.cdtype)
+    for layer in range(cfg.encoder_layers):
+        p = group_params(enc, layer)["b0"]
+        x, _, _ = block_apply(cfg, "attn_nc", p, x, positions=positions)
+    return apply_norm(cfg, x, enc["final_norm"])
+
+
+def _memory(cfg: ModelConfig, params: dict, memory):
+    """The cross-attention blocks' memory: encoded where the model has an
+    encoder, else cast to the compute dtype; None stays None."""
+    if memory is None:
+        return None
+    if cfg.encoder_layers:
+        return encode(cfg, params, memory)
+    return memory.to(cfg.cdtype)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens, memory=None):
+    """tokens: (B,S) int; memory: (B,Sm,d) stub embeddings (vlm/audio).
+    Returns (logits (B,S,V), aux): aux is the MoE load-balance loss summed
+    over the stack (0 for dense stacks)."""
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
+    memory = _memory(cfg, params, memory)
     x = embed_apply(cfg, params["embed"], tokens, positions)
-    x, aux = _stack_forward(cfg, params, x, positions)
+    x, aux = _stack_forward(cfg, params, x, positions, memory)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed_apply(cfg, params["embed"], x), aux
 
@@ -243,13 +303,13 @@ def ring_len(cfg: ModelConfig, kind: str, seq: int) -> int:
     return min(seq, w) if w else seq
 
 
-def cache_metas(cfg: ModelConfig, batch: int, seq: int) -> dict:
+def cache_metas(cfg: ModelConfig, batch: int, seq: int, mem_len: int = 0) -> dict:
     """ParamMeta tree describing the decode cache, each leaf stacked over
     the groups: k and v (num_groups, batch, R, KV, hd) for an attention
-    block (and under ``shared`` for the shared attention block); ssm,
-    conv_x and conv_bc for a Mamba2 block; wkv, tm_last and cm_last for
-    an RWKV6 block."""
-    _check_ported(cfg)
+    block (and under ``shared`` for the shared attention block); xk and
+    xv (num_groups, batch, mem_len, KV, hd) for a cross-attention block
+    (with k and v for ``attn_xattn``); ssm, conv_x and conv_bc for a
+    Mamba2 block; wkv, tm_last and cm_last for an RWKV6 block."""
     kv, hd, G = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_groups
 
     def meta(*shape):
@@ -260,6 +320,12 @@ def cache_metas(cfg: ModelConfig, batch: int, seq: int) -> dict:
         if kind in ATTN_KINDS:
             r = ring_len(cfg, kind, seq)
             caches[f"b{i}"] = {"k": meta(r, kv, hd), "v": meta(r, kv, hd)}
+        elif kind == "xattn":
+            caches[f"b{i}"] = {"xk": meta(mem_len, kv, hd), "xv": meta(mem_len, kv, hd)}
+        elif kind == "attn_xattn":
+            r = ring_len(cfg, kind, seq)
+            caches[f"b{i}"] = {"k": meta(r, kv, hd), "v": meta(r, kv, hd),
+                               "xk": meta(mem_len, kv, hd), "xv": meta(mem_len, kv, hd)}
         elif kind == "mamba":
             d_inner, H, P, N = mamba2._dims(cfg)
             caches[f"b{i}"] = {"ssm": meta(H, P, N),
@@ -281,11 +347,12 @@ def cache_dtype(path_key: str, default_dtype):
     return torch.float32 if path_key in ("ssm", "wkv") else default_dtype
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cuda"):
+def init_cache(cfg: ModelConfig, batch: int, seq: int, mem_len: int = 0, dtype=None,
+               device="cuda"):
     dtype = dtype or cfg.cdtype
     return {b: {key: torch.zeros(m.shape, dtype=cache_dtype(key, dtype), device=device)
                 for key, m in c.items()}
-            for b, c in cache_metas(cfg, batch, seq).items()}
+            for b, c in cache_metas(cfg, batch, seq, mem_len).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -295,8 +362,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cuda"
 
 def block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int):
     """One-token decode for a single block. Returns (x, new cache): an
-    attention block's cache is the one given, written in place; a
-    recurrent block's holds new tensors (the caller writes them back)."""
+    attention block's cache is the one given, its K/V written in place
+    (a cross-attention block's memory K/V only read); a recurrent block's
+    holds new tensors (the caller writes them back)."""
     if kind == "mamba":
         h = apply_norm(cfg, x, p["ln1"])
         out, new_cache = mamba2.mamba2_decode(cfg, p["mamba"], h, cache)
@@ -308,8 +376,24 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int):
         h = apply_norm(cfg, x, p["ln2"])
         out = rwkv6.rwkv6_channel_mix(cfg, p["rwkv"]["cm"], h, last=cache["cm_last"])
         return x + out, dict(new_cache, cm_last=h[:, 0])
+    if kind == "xattn":
+        h = apply_norm(cfg, x, p["ln1"])
+        out = attn.decode_cross_attention(cfg, p["xattn"], h,
+                                          {"k": cache["xk"], "v": cache["xv"]})
+        x = x + _gate(p, x) * out
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h), cache
+    if kind == "attn_xattn":
+        h = apply_norm(cfg, x, p["ln1"])
+        out, _ = attn.decode_self_attention(cfg, p["attn"], h, cache, pos, window=0)
+        x = x + out
+        h = apply_norm(cfg, x, p["lnx"])
+        x = x + attn.decode_cross_attention(cfg, p["xattn"], h,
+                                            {"k": cache["xk"], "v": cache["xv"]})
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h), cache
     if kind not in ("attn", "attn_local") + MOE_KINDS:
-        raise _not_ported(f"decode of block kind {kind!r}")
+        raise ValueError(f"unknown block kind {kind}")
     h = apply_norm(cfg, x, p["ln1"])
     out, cache = attn.decode_self_attention(cfg, p["attn"], h, cache, pos,
                                             window=_window_for(cfg, kind))
@@ -343,7 +427,6 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, tokens, pos: int):
     """serve_step: one new token against a cache of `seq` positions.
     tokens: (B,1) int; pos: int. Returns (logits (B,1,V), caches), the
     caches written in place."""
-    _check_ported(cfg)
     B = tokens.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device)
     x = embed_apply(cfg, params["embed"], tokens, positions)
@@ -378,9 +461,9 @@ def _store(cfg: ModelConfig, caches: dict, key: str, kind: str, c: dict, g: int,
            cache_len: int):
     """Write group g's prefill cache ``c`` of block ``key`` into
     ``caches``, allocating each leaf at its final (num_groups, ...) size
-    on first sight: K/V laid out for decode by `to_ring`, the recurrent
-    states (the chunked scans' final states and the last inputs) as they
-    come, in the dtype they come in."""
+    on first sight: K/V laid out for decode by `to_ring`, the memory's
+    K/V and the recurrent states (the chunked scans' final states and the
+    last inputs) as they come, in the dtype they come in."""
     out = caches.setdefault(key, {})
     for k, t in c.items():
         ring = k in ("k", "v")
@@ -394,14 +477,15 @@ def _store(cfg: ModelConfig, caches: dict, key: str, kind: str, c: dict, g: int,
             out[k][g].copy_(t)
 
 
-def prefill(cfg: ModelConfig, params: dict, tokens, cache_len: int):
+def prefill(cfg: ModelConfig, params: dict, tokens, cache_len: int, memory=None):
     """Run the full prompt, returning (logits of the last position (B,1,V),
-    caches sized cache_len). Each block's prompt K/V, and each recurrent
-    block's final state, is written into a cache allocated once at its
-    final size (the JAX package stacks them, then pads or rolls)."""
-    _check_ported(cfg)
+    caches sized cache_len). Each block's prompt K/V (and the memory's, for
+    a cross-attention block), and each recurrent block's final state, is
+    written into a cache allocated once at its final size (the JAX package
+    stacks them, then pads or rolls)."""
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
+    memory = _memory(cfg, params, memory)
     x = embed_apply(cfg, params["embed"], tokens, positions)
     shared = params.get("shared_attn")
     caches = {}
@@ -412,7 +496,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens, cache_len: int):
             _store(cfg, caches, "shared", "shared", {"k": kv[0], "v": kv[1]}, g, cache_len)
         for i, kind in enumerate(cfg.pattern):
             x, _, c = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions,
-                                  want_cache=True)
+                                  memory=memory, want_cache=True)
             _store(cfg, caches, f"b{i}", kind, c, g, cache_len)
     x = apply_norm(cfg, x, params["final_norm"])
     logits = unembed_apply(cfg, params["embed"], x[:, -1:])

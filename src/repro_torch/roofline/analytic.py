@@ -12,8 +12,8 @@ the port's flash-attention kernel skips the masked ones; MoE counts
 the routed experts that ``B * k`` tokens can touch, not the whole
 (E, cap, d) products that the dispatch computes (PERF.md §7).
 
-Parameter counts come from the port's `model_metas`, so a config with a
-block kind that is not ported raises ``NotImplementedError`` here too.
+Parameter counts come from the port's `model_metas`. An unknown block
+kind raises ``ValueError``, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -11,7 +11,11 @@ and 2e-5 in float32. K4's bfloat16 cases go through its tensor-core
 kernel, its float32 cases through its CUDA-core kernel.
 
 K4 at head dim 112 (Zamba2-7B's shared attention) on both routes: the
-bf16 route runs its hd 128 instantiation over 112-wide tensor maps.
+bf16 route runs its hd 128 instantiation over 112-wide tensor maps. K4
+onto a memory (cross-attention: non-causal, Sq != Skv, Sq under the bf16
+kernel's 128-row q tile, one live column in the last kv tile) on both
+routes, and one cross-attention block of each kind (Llama-3.2-Vision's
+gated ``xattn``, Whisper's ``attn_xattn``) against itself on the CPU.
 
 Also on the card, though no kernel of the port computes them: one Mamba2
 and one RWKV6 layer against themselves on the CPU (their scans are plain
@@ -367,6 +371,53 @@ def test_flash_attention_head_dim_112(dev, B, S, KV, G, causal, window, softcap,
             torch.testing.assert_close(got[b:b + 1], want, rtol=2e-5, atol=2e-5)
         else:
             assert _within_bf16_ulp(got[b:b + 1], want)
+
+
+# K4 attending onto a memory: non-causal with Sq != Skv, as cross-attention
+# calls it (Whisper's decoder: 64 queries over 1,500 encoder frames at hd 64
+# and G = 1, a q tile of 64 under the kernel's 128 rows; Llama-3.2-Vision:
+# queries over 1,601 patch embeddings, one live column in the last kv tile,
+# at hd 128 and G = 8), scaled down in batch and heads; then Sq below 128
+# and ragged on both sides, and Whisper's decoder self-attention (causal,
+# Sq = Skv = 64).
+@pytest.mark.parametrize("B,Sq,Skv,KV,G,hd,causal", [
+    (2, 64, 1500, 4, 1, 64, False),     # Whisper's cross-attention
+    (1, 1000, 1601, 2, 8, 128, False),  # Llama-3.2-Vision's
+    (1, 40, 37, 2, 2, 64, False),       # Sq < 128, both ragged, Skv < Sq
+    (3, 1, 1601, 1, 8, 128, False),     # one query row
+    (2, 64, 64, 4, 1, 64, True),        # Whisper's decoder self-attention
+    (1, 1500, 1500, 4, 1, 64, False),   # Whisper's encoder
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_over_a_memory(dev, B, Sq, Skv, KV, G, hd, causal, dtype):
+    """Against the plain version: bf16 within one bf16 ulp, float32 within
+    2e-5; the launch counted on the route of its dtype. A q that is a slice
+    of a taller buffer (rows past Sq hold other data, which the bf16
+    kernel's 128-row q box must not read) gives what its contiguous copy
+    gives."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(B, Sq, KV, G, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=0, softcap=0.0)
+    route = attn_ops.ROUTES[dtype][0]
+    n0, r0 = attn_ops.launches, attn_ops.launches_by_route[route]
+    got = attn_ops.flash_attention(q, k, v, **kw)
+    assert attn_ops.launches == n0 + 1 and attn_ops.launches_by_route[route] == r0 + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    want = flash_attention_ref(q, k, v, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        assert _within_bf16_ulp(got, want)
+    big = torch.randn(B, Sq + 64, KV, G, hd, generator=g, device=dev).to(dtype) * 100
+    got2 = attn_ops.flash_attention(big[:, :Sq], k, v, **kw)
+    assert torch.equal(got2, attn_ops.flash_attention(big[:, :Sq].contiguous(), k, v, **kw))
 
 
 def test_flash_attention_bf16_near_hard_max_as_close_to_float64_as_plain(dev):
@@ -787,3 +838,78 @@ def test_recurrent_layer_on_the_card(dev, arch):
         assert torch.isfinite(a).all()
         rel = float((a - b).norm() / b.norm())
         assert rel < 1e-5, rel
+
+
+@pytest.mark.parametrize("arch,kind", [("llama-3.2-vision-90b", "xattn"),
+                                       ("whisper-large-v3", "attn_xattn")])
+def test_cross_attention_block_on_the_card(dev, arch, kind):
+    """One gated cross-attention block (Llama-3.2-Vision's heads: 64 of 128
+    over 8 KV heads, at d_model 1,024 and d_ff 2,048 instead of 8,192 and
+    28,672; 200 tokens over 1,601 patch embeddings; the gate at 1.0) and
+    one Whisper decoder block (its full widths: d_model 1,280, 20 heads of
+    64; 64 tokens over 1,500 frames) on the card against the same block on
+    the CPU, in float32 (in relative norm, 1e-5: cuBLAS and the reductions
+    sum in another order; the attention projections drawn at fan-in
+    d_model), with the prefill's caches (the memory's K/V, and Whisper's
+    self K/V) and 2 decode steps that read the cross cache. K4
+    launches once per attention of the prefill (1 and 2), on its float32
+    route; K3 twice a call where the norms are RMSNorm (Llama), never for
+    Whisper's LayerNorm."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import init_params
+
+    narrow = dict(d_model=1024, d_ff=2048) if kind == "xattn" else {}
+    cfg = get_config(arch, param_dtype="float32", compute_dtype="float32", **narrow)
+    params = init_params(tfm.block_metas(cfg, kind), torch.Generator().manual_seed(0),
+                         torch.float32, torch.device("cpu"))
+    if kind == "xattn":
+        params["gate"].fill_(1.0)
+    # the attention projections at fan-in d_model: the init's fan-in (G for
+    # wq, KV for wk and wv) leaves the softmax nearly a hard max, where
+    # float32 runs on the two devices part by ~1e-4 in relative norm
+    g = cfg.num_heads // cfg.num_kv_heads
+    for sub in ("attn", "xattn"):
+        if sub in params:
+            params[sub]["wq"].mul_((g / cfg.d_model) ** 0.5)
+            params[sub]["wk"].mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
+            params[sub]["wv"].mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
+    S, n_dec = (200 if kind == "xattn" else 64), 2
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2, S + n_dec, cfg.d_model, generator=gen)
+    mem = torch.randn(2, cfg.num_xattn_tokens, cfg.d_model, generator=gen)
+    pos = torch.arange(S).expand(2, S)
+
+    def run(p, xs, memory):
+        out, _, cache = tfm.block_apply(cfg, kind, p, xs[:, :S].contiguous(),
+                                        positions=pos.to(xs.device), memory=memory,
+                                        want_cache=True)
+        for key in ("k", "v"):  # self K/V padded to the decode length
+            if key in cache:
+                c = cache[key]
+                cache[key] = torch.zeros((2, S + n_dec) + tuple(c.shape[2:]), device=c.device)
+                cache[key][:, :S] = c
+        outs = [out]
+        for t in range(S, S + n_dec):
+            o, cache = tfm.block_decode(cfg, kind, p, xs[:, t:t + 1].contiguous(), cache, t)
+            outs.append(o)
+        return torch.cat(outs, dim=1), cache
+
+    want, cache_want = run(params, x, mem)
+    n3, n4 = norm_ops.launches, attn_ops.launches
+    r4 = attn_ops.launches_by_route["f32_cuda_cores"]
+    got, cache_got = run(_to(params, dev), x.to(dev), mem.to(dev))
+    torch.cuda.synchronize()
+    n_attn = 1 if kind == "xattn" else 2
+    assert attn_ops.launches - n4 == n_attn
+    assert attn_ops.launches_by_route["f32_cuda_cores"] - r4 == n_attn
+    assert norm_ops.launches - n3 == (2 * (1 + n_dec) if kind == "xattn" else 0)
+    assert sorted(cache_got) == sorted(cache_want)
+    assert cache_got["xk"].shape[1] == cfg.num_xattn_tokens
+    for a, b in [(got, want)] + [(cache_got[k], cache_want[k]) for k in cache_want]:
+        a = a.cpu()
+        assert torch.isfinite(a).all()
+        rel = float((a - b).norm() / b.norm())
+        assert rel < 1e-5, (a.shape, rel)

@@ -4,9 +4,12 @@ window 16), Gemma 2B (MQA), Moonlight-16B-A3B (MoE: 4 experts top-2 and
 a shared expert, SwiGLU), Mixtral 8x22B (windowed MoE, no shared
 expert), Llama-4 Maverick (dense and MoE blocks alternating, top-1),
 Llama 3 405B (dense SwiGLU), Zamba2-7B (Mamba2 blocks and a shared
-attention block) and RWKV6-3B (LayerNorm, no positions): the same
-parameters (the JAX package's init, carried over with
-`params_from_numpy`) and the same prompts.
+attention block), RWKV6-3B (LayerNorm, no positions), Llama-3.2-Vision
+(gated cross-attention) and Whisper large-v3 (an encoder; sinusoidal
+positions, the plain-gelu MLP): the same parameters (the JAX package's
+init, carried over with `params_from_numpy`), the same prompts and, for
+the last two, the same N(0, 1) stub memory (`tests/test_torch_xattn.py`
+holds their layers and caches).
 
 Held: `forward` logits and the MoE aux loss; `prefill` logits and every
 cache leaf (K/V, and the recurrent states the prefill hands to decode);
@@ -41,17 +44,54 @@ from repro_torch.models.registry import build, params_from_numpy
 
 RTOL, ATOL, SCALE_ATOL = 1e-4, 1e-5, 1e-4  # SCALE_ATOL: times max |want|
 ARCHS = ["gemma2-9b", "gemma-2b", "moonshot-v1-16b-a3b", "mixtral-8x22b",
-         "llama4-maverick-400b-a17b", "llama3-405b", "zamba2-7b", "rwkv6-3b"]
+         "llama4-maverick-400b-a17b", "llama3-405b", "zamba2-7b", "rwkv6-3b",
+         "llama-3.2-vision-90b", "whisper-large-v3"]
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "mixtral-8x22b", "llama4-maverick-400b-a17b"]
 RECURRENT_ARCHS = ["zamba2-7b", "rwkv6-3b"]
 B, S, N_DECODE = 2, 40, 4
 N_DECODE_RECURRENT = 8
 
 
+def conditioned(cfg, params_j):
+    """The JAX init draws ``wq`` (d, KV, G, hd) with fan-in G and ``wk``,
+    ``wv`` (d, KV, hd) with fan-in KV, their second-to-last axes: scores of
+    a few hundred and a near-hard-max softmax. On the Whisper smoke config
+    with its memory, float32 itself, in either package, then sits 1.6% of
+    the largest logit from the same model in float64, and the two packages
+    1.1e-3 from each other: no tolerance tells a wrong function from
+    roundoff there. With the three projections rescaled to fan-in d_model,
+    as a projection from d_model is meant to be drawn (in the JAX params,
+    before they are carried over, so both packages get the same weights),
+    both float32 runs sit within 6e-7 of float64 (measured on both
+    cross-attention smoke configs). Applied to the configs with
+    cross-attention; the others pass at the raw init."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    scale = {"wq": np.float32((g / cfg.d_model) ** 0.5),
+             "wk": np.float32((cfg.num_kv_heads / cfg.d_model) ** 0.5),
+             "wv": np.float32((cfg.num_kv_heads / cfg.d_model) ** 0.5)}
+
+    def walk(d):
+        return {k: walk(v) if isinstance(v, dict) else v * scale[k] if k in scale else v
+                for k, v in d.items()}
+
+    return walk(params_j)
+
+
+def memory_for(cfg):
+    """(B, num_xattn_tokens, d_model) N(0, 1) stub embeddings for a config
+    with cross-attention, else None."""
+    if not cfg.num_xattn_tokens:
+        return None
+    return np.random.default_rng(2).standard_normal(
+        (B, cfg.num_xattn_tokens, cfg.d_model)).astype(np.float32)
+
+
 def _setup(arch, **overrides):
     cfg_j = get_smoke_jax(arch, **overrides)
     cfg_t = get_smoke(arch, **overrides)
     params_j = build_jax(cfg_j).init(jax.random.PRNGKey(0))
+    if cfg_j.num_xattn_tokens:
+        params_j = conditioned(cfg_j, params_j)
     params_t = params_from_numpy(jax.tree.map(np.asarray, params_j), device="cpu")
     tokens = np.random.default_rng(1).integers(0, cfg_t.vocab_size, (B, S)).astype(np.int32)
     return cfg_j, cfg_t, params_j, params_t, tokens
@@ -91,22 +131,32 @@ def test_configs_and_param_trees_match():
     assert build(get_config("moonshot-v1-16b-a3b")).num_params() == 28_552_923_136
     assert build(get_config("zamba2-7b")).num_params() == 6_635_851_856
     assert build(get_config("rwkv6-3b")).num_params() == 2_690_501_120
+    # counted from the metas, nothing drawn
+    assert build(get_config("whisper-large-v3")).num_params() == 1_534_602_240
+    assert build(get_config("llama-3.2-vision-90b")).num_params() == 86_616_121_364
 
 
 def test_unported_kinds_raise():
-    """Cross-attention and the encoder wait for item 7."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("llama-3.2-vision-90b")
-    cfg = get_smoke("gemma-2b").replace(pattern=("xattn",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every block kind of the JAX package is ported: an unknown kind
+    raises ``ValueError`` in both packages, as the JAX package's does, and
+    both cross-attention configs build."""
+    for arch in ("llama-3.2-vision-90b", "whisper-large-v3"):
+        assert build(get_config(arch)).num_params() == build_jax(get_config_jax(arch)).num_params()
+    cfg = get_smoke("gemma-2b").replace(pattern=("attn_mystery",))
+    with pytest.raises(ValueError, match="unknown block kind"):
         build(cfg).metas()
+    with pytest.raises(ValueError, match="unknown block kind"):
+        build_jax(get_smoke_jax("gemma-2b").replace(pattern=("attn_mystery",))).metas()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_jax(arch):
     cfg_j, cfg_t, params_j, params_t, tokens = _setup(arch)
-    want, aux_j = build_jax(cfg_j).forward(params_j, jnp.asarray(tokens))
-    got, aux_t = build(cfg_t).forward(params_t, torch.from_numpy(tokens))
+    mem = memory_for(cfg_t)
+    want, aux_j = build_jax(cfg_j).forward(params_j, jnp.asarray(tokens),
+                                           None if mem is None else jnp.asarray(mem))
+    got, aux_t = build(cfg_t).forward(params_t, torch.from_numpy(tokens),
+                                      None if mem is None else torch.from_numpy(mem))
     assert got.shape == (B, S, cfg_t.vocab_size)
     _close(got, want)
     assert aux_t.dtype == torch.float32 and aux_t.shape == ()
@@ -208,11 +258,20 @@ def test_bf16_forward_matches_jax_in_norm():
 @pytest.mark.parametrize("field,value", [("pos", "learned"), ("pos", "sinusoidal"),
                                          ("mlp_act", "gelu")])
 def test_unported_layer_options_raise(field, value):
-    """Positions and the plain-gelu MLP, which no ported config uses, wait
-    for item 7."""
-    cfg = get_smoke("gemma-2b").replace(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(cfg).metas()
+    """The layer options that only the cross-attention configs use, now
+    ported: learned positions (a table of ``max_position`` = 64 rows:
+    the default 2^20 would draw 0.5 GB), sinusoidal positions and the
+    plain tanh-GELU MLP, each on the Gemma 2B smoke config, build the JAX
+    package's parameter tree and match its `forward`."""
+    over = {field: value, "max_position": 64}
+    cfg_j, cfg_t, params_j, params_t, tokens = _setup("gemma-2b", **over)
+    leaves_j = jax.tree_util.tree_flatten_with_path(params_j)[0]
+    assert _paths(build(cfg_t).metas()) == [tuple(p.key for p in path) for path, _ in leaves_j]
+    assert ("pos" in params_t["embed"]) == (value == "learned")
+    assert ("wg" in params_t["groups"]["b0"]["mlp"]) == (value != "gelu")
+    want, _ = build_jax(cfg_j).forward(params_j, jnp.asarray(tokens))
+    got, _ = build(cfg_t).forward(params_t, torch.from_numpy(tokens))
+    _close(got, want)
 
 
 @pytest.mark.parametrize("n_tokens", [1, 5])
@@ -266,13 +325,16 @@ def test_serve_on_cpu(arch):
     """The serving entry point on the CPU: greedy tokens equal a decode
     loop driven through the JAX package on the same weights."""
     cfg_j, cfg_t, params_j, params_t, tokens = _setup(arch)
+    mem = memory_for(cfg_t)
     n = 3
-    r = serve(cfg_t, params_t, torch.from_numpy(tokens), n, device="cpu")
+    r = serve(cfg_t, params_t, torch.from_numpy(tokens), n, device="cpu",
+              memory=None if mem is None else torch.from_numpy(mem))
     assert r["tokens"].shape == (B, n + 1) and r["finite"]
     assert r["launches"] == {"prefill": {"rms_norm": 0, "flash_attention": 0},
                              "decode": {"rms_norm": 0, "flash_attention": 0}}
     mj = build_jax(cfg_j)
-    logits, caches = mj.prefill(params_j, jnp.asarray(tokens), S + n)
+    logits, caches = mj.prefill(params_j, jnp.asarray(tokens), S + n,
+                                None if mem is None else jnp.asarray(mem))
     tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
     out = [tok]
     for i in range(n):

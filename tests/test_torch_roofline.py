@@ -13,6 +13,7 @@ import math
 import pytest
 
 from repro.configs import get_config as get_config_jax
+from repro.configs import get_smoke as get_smoke_jax
 from repro.launch import mesh as mesh_jax
 from repro.roofline import analysis as analysis_jax
 from repro.roofline import analytic as analytic_jax
@@ -21,7 +22,8 @@ from repro_torch.launch import mesh
 from repro_torch.roofline import analysis, analytic
 
 ARCHS = ["gemma2-9b", "gemma-2b", "moonshot-v1-16b-a3b", "mixtral-8x22b",
-         "llama4-maverick-400b-a17b", "llama3-405b", "zamba2-7b", "rwkv6-3b"]
+         "llama4-maverick-400b-a17b", "llama3-405b", "zamba2-7b", "rwkv6-3b",
+         "llama-3.2-vision-90b", "whisper-large-v3"]
 SHAPES = {"train": (4096, 256), "prefill": (8000, 2), "decode": (8064, 2),
           "decode_long": (500_000, 1)}
 
@@ -87,9 +89,16 @@ def test_recurrent_anchors(arch, pre, pre_model, pre_bytes, dec_bytes):
 
 
 def test_unported_kinds_raise():
-    cfg = get_smoke("gemma-2b").replace(pattern=("xattn",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        analytic.analytic_cost(cfg, analytic.ShapeSpec("prefill", 16, 1))
+    """Every block kind is priced (``xattn`` too, which no longer raises);
+    an unknown one raises ``ValueError`` in both packages."""
+    spec = ("prefill", 16, 1)
+    over = dict(pattern=("xattn",), num_xattn_tokens=24)
+    got = analytic.analytic_cost(get_smoke("gemma-2b", **over), analytic.ShapeSpec(*spec))
+    assert got == analytic_jax.analytic_cost(get_smoke_jax("gemma-2b", **over),
+                                             analytic_jax.ShapeSpec(*spec))
+    for pkg, get in ((analytic, get_smoke), (analytic_jax, get_smoke_jax)):
+        with pytest.raises(ValueError):
+            pkg.analytic_cost(get("gemma-2b", pattern=("attn_mystery",)), pkg.ShapeSpec(*spec))
 
 
 def test_h100_constants():
