@@ -174,10 +174,28 @@ its own:
    own q (2, 8000, 8, 8, 128) over k, v (2, 1601, 8, 128), as for
    Whisper's, beside ``scaled_dot_product_attention(is_causal=False,
    enable_gqa=True)``;
-13. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
-   and K4's on all six LLM paths), error against its plain version,
-   times and bound;
-14. the last line, ``{"ok": true, "device": {...}}``.
+13. the training path (`launch/train.train`, the LLM distillation
+   trainer): Gemma 2B at full size (18 layers, d_model 2,048, 8 q heads
+   of 256 over 1 KV head, GeGLU d_ff 16,384, vocab 256,000, remat;
+   2,506,172,416 random bf16 parameters drawn on the card from seed 0),
+   2 phases of K = 4 steps at 2 x 2,048 tokens (gamma 0.05, lr 1e-3, clip
+   1.0), the first on a random mask drawn on the card, the second
+   gradient-guided; the delta encoded at each phase's end and applied to
+   the edge's copy of the init. Per step: the loss (finite), the kernel
+   launches (exactly `train_expected_launches`: K3 73, K3-bwd 37, K4 36,
+   K4-bwd 18, K1 1), the stages' times; at step 1 every leaf's gradient
+   finite and not all zero; the peak memory beside its prediction, the
+   step's MFU against `roofline.analytic`, the downlink per phase; the
+   edge's params equal the trained ones through fp16 where a mask
+   selected. Then K4-bwd and K3-bwd on the run's layer-0 tensors and on
+   N(0, 1) inputs, within 2x the bf16 plain backward's error from
+   float64, K4-bwd on an option grid against its plain backward, both
+   timed beside their bounds, plain versions and autograd through SDPA
+   and ``F.rms_norm``;
+14. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
+   and K4's on all six LLM paths and the trainer), error against its
+   plain version, times and bound;
+15. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; it does so too without CUDA, and when ``src/`` is missing (the
@@ -185,6 +203,7 @@ imports fail).
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import math
@@ -205,12 +224,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # the port, from src/ beside this file; the import fails (non-zero exit,
 # no result) in a directory that holds nothing else of the repo
 from repro_torch import tree  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import batched, selection, timing  # noqa: E402
 from repro_torch.core.batched import stack_trees, train_phases_fused  # noqa: E402
 from repro_torch.core.client import EdgeClient  # noqa: E402
-from repro_torch.core.delta import encode_delta, encode_delta_stack  # noqa: E402
+from repro_torch.core.delta import apply_delta, encode_delta, encode_delta_stack  # noqa: E402
 from repro_torch.core.masked_adam import init_state, masked_adam_update  # noqa: E402
 from repro_torch.core.server import AMSConfig, AMSSession, Task  # noqa: E402
+from repro_torch.data.tokens import StreamConfig, TokenStream  # noqa: E402
 from repro_torch.data.video import VideoConfig  # noqa: E402
 from repro_torch.device import host_to_device  # noqa: E402
 from repro_torch.kernels import build, stacking  # noqa: E402
@@ -234,6 +255,7 @@ from repro_torch.launch.serve import (ENCDEC_BATCH, ENCDEC_DECODE,  # noqa: E402
                                       moe_path_inputs, recurrent_path_inputs, serve,
                                       vlm_path_inputs)
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.metrics.miou import miou  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.ssm import mamba2, rwkv6  # noqa: E402
@@ -2084,6 +2106,422 @@ def vlm_phase(dev, bw, bf16_flops) -> dict:
     return vlm
 
 
+# ---------------------------------------------------------------------------
+# The training path: Gemma 2B trained at full size through K1, K3, K4 and
+# the backward kernels K3-bwd and K4-bwd
+# ---------------------------------------------------------------------------
+
+# Gemma 2B's published config (the JAX trainer's default --arch): 18
+# layers, d_model 2,048, 8 q heads of 256 over 1 KV head, GeGLU d_ff
+# 16,384, vocab 256,000, bf16, remat; 2,506,172,416 random bf16 params
+# drawn on the card from seed 0. 2 phases of K = 4 steps at 2 x 2,048
+# tokens, gamma 0.05, lr 1e-3, clip 1.0. The token stream draws ids below
+# 32,768 (`TokenStream` samples on the host in O(vocab) a position, ~8x
+# cheaper than at 256,000), valid ids of the model; the cross-entropy
+# still runs over all 256,000 logits.
+TRAIN_ARCH, TRAIN_PARAMS = "gemma-2b", 2_506_172_416
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_PHASES = 2, 2048, 4, 2
+TRAIN_GAMMA, TRAIN_LR, TRAIN_CLIP, TRAIN_STREAM_VOCAB = 0.05, 1e-3, 1.0, 32_768
+# predicted before the first run: 15 bytes of optimizer state a coordinate
+# (p, m, g bf16; v, u float32; the mask) = 37.6 GB, the edge's copy of
+# the init 5.0 GB, the two phases' mask trees 5.0 GB, ~15 GB of logits
+# (bf16, float32, the log-sum-exp's and the backward's temporaries at
+# 4,096 x 256,000) and activations under remat
+TRAIN_PEAK_PREDICTED = 62e9
+# K4-bwd on every option the forward takes, against its plain version:
+# (B, Sq, Skv, KV, G, hd, causal, window, softcap, dtype)
+K4_BWD_GRID = [
+    (1, 300, 300, 2, 2, 256, True, 0, 50.0, torch.bfloat16),
+    (1, 300, 300, 2, 2, 128, True, 64, 30.0, torch.bfloat16),
+    (2, 200, 200, 4, 1, 64, False, 0, 0.0, torch.bfloat16),
+    (1, 100, 333, 2, 2, 112, False, 0, 0.0, torch.bfloat16),
+    (1, 333, 100, 1, 8, 128, True, 0, 0.0, torch.bfloat16),
+    (1, 96, 96, 2, 2, 256, True, 20, 50.0, torch.float32),
+    (1, 257, 257, 1, 8, 112, True, 0, 0.0, torch.float32),
+    (2, 130, 70, 2, 2, 64, False, 0, 20.0, torch.float32),
+]
+
+
+def train_expected_launches(cfg) -> dict:
+    """Kernel launches of one training step of a stack of dense attention
+    blocks under remat. Each block runs K3 on its 2 norms (4 with
+    post-norms) and K4 once in the forward, and again when backward
+    recomputes its group (remat); K3-bwd and K4-bwd once per forward norm
+    and attention; the final norm once forward (outside the groups) and
+    once backward; K1 once per param dtype (one: every leaf is the
+    config's param dtype). For Gemma 2B (18 layers): K3 73, K3-bwd 37, K4
+    36, K4-bwd 18, K1 1."""
+    check(all(k in ("attn", "attn_local") for k in cfg.pattern),
+          "train_expected_launches counts dense attention stacks")
+    norms = (2 + 2 * cfg.post_norm) * cfg.num_layers
+    rec = 2 if cfg.remat else 1
+    return {"rms_norm": rec * norms + 1, "rms_norm_bwd": norms + 1,
+            "flash_attention": rec * cfg.num_layers,
+            "flash_attention_bwd": cfg.num_layers, "masked_adam_3d": 1,
+            "topk_threshold_bits": 0}
+
+
+def train_counts() -> dict:
+    return {"rms_norm": norm_ops.launches, "rms_norm_bwd": norm_ops.bwd_launches,
+            "flash_attention": attn_ops.launches,
+            "flash_attention_bwd": attn_ops.bwd_launches,
+            "masked_adam_3d": adam_ops.launches, "topk_threshold_bits": topk_ops.launches}
+
+
+class StageClock:
+    """`launch/train.train`'s ``clock``: CUDA events around each stage of
+    each step, synchronised at its end, and the host's clock beside them
+    (sampling and encoding work on the host)."""
+
+    def __init__(self):
+        self.step = 0
+        self.records = []  # (stage, step, device ms, host ms)
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        yield
+        b.record()
+        b.synchronize()
+        self.records.append((name, self.step, a.elapsed_time(b),
+                             1e3 * (time.perf_counter() - t0)))
+
+    def by_step(self) -> list:
+        out = [dict() for _ in range(self.step)]
+        for name, step, ms, host in self.records:
+            out[step][name] = ms if name not in ("sample", "encode") else host
+        return out
+
+
+def attention_bwd_f64(q, k, v, do, *, causal, window, softcap):
+    """dq, dk, dv of the plain attention's function in float64 (autograd;
+    masked scores -1e300)."""
+    qd, kd, vd = (t.detach().double().requires_grad_() for t in (q, k, v))
+    Sq, Skv, hd = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqkgh,bskh->bkgqs", qd, kd) * hd**-0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window:
+        mask &= qp - kp < window
+    p = torch.softmax(s.masked_fill(~mask, -1e300), dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, vd)
+    return torch.autograd.grad(o, (qd, kd, vd), do.double())
+
+
+def rms_norm_bwd_f64(x, w, dy, eps=1e-6):
+    xd, wd = x.detach().double().requires_grad_(), w.detach().double().requires_grad_()
+    y = xd * torch.rsqrt(torch.mean(xd * xd, dim=-1, keepdim=True) + eps) * (1.0 + wd)
+    return torch.autograd.grad(y, (xd, wd), dy.double())
+
+
+def bwd_errors(names, kernel, plain, truth) -> dict:
+    """Each output's largest error from float64, the kernel's and the plain
+    version's (also over the largest |float64 value|), whether the kernel's
+    is within 2x the plain one's, and the largest kernel - plain gap."""
+    out = {}
+    for n, a, b, t in zip(names, kernel, plain, truth):
+        t = t.detach()
+        scale = float(t.abs().max())
+        ek = float((a.double() - t).abs().max())
+        ep = float((b.double() - t).abs().max())
+        out[n] = dict(kernel=ek, plain=ep, kernel_rel=ek / scale, plain_rel=ep / scale,
+                      kernel_vs_plain=float((a.double() - b.double()).abs().max()),
+                      held=ek <= 2 * ep)
+    return out
+
+
+def close_to_plain(got, want, what="backward kernel") -> float:
+    """float32: within 1e-4 relative and 2e-5 of the largest |value|;
+    bfloat16: one bf16 ulp plus 1e-4 of the largest |value| (the kernel and
+    the plain version compute in float32 and sum in other orders). Returns
+    the largest abs error."""
+    scale = float(want.float().abs().max())
+    if want.dtype == torch.float32:
+        ok = bool(((got - want).abs() <= 1e-4 * want.abs() + 2e-5 * scale).all())
+    else:
+        ok = within_bf16_ulp(got, want, atol=1e-4 * scale)
+    check(ok, f"{what} within tolerance of its plain version ({tuple(got.shape)} "
+              f"{got.dtype})")
+    return float((got.float() - want.float()).abs().max())
+
+
+def k4_bwd_phase(dev, captured, bw, bf16_flops) -> dict:
+    """K4's forward at the training path's shape, then K4-bwd. The forward
+    as `k4_run_phase` holds it: on N(0, 1) q, k, v within one bf16 ulp of
+    its plain version, on the run's own against attention in float64 (the
+    run's saved output is the kernel's, bit for bit); its row log-sum-exp,
+    the one the run saved and the N(0, 1) inputs', within `close_to_plain`'s
+    float32 bound of the plain forward's. K4-bwd on the run's own layer-0
+    q, k, v, output, log-sum-exp and dO, and on N(0, 1) inputs of the same
+    shapes: dq, dk and dv within 2x the error from float64 of the bf16
+    plain backward, which reads the plain forward's own output and
+    log-sum-exp, so that a wrong log-sum-exp from the kernel shows as a gap
+    (the run's init makes the softmax nearly a hard max, F12). On the
+    option grid: the forward's output and log-sum-exp against the plain
+    forward's, and the backward against the plain backward on the same
+    output and log-sum-exp. Then timed beside its bound, the plain version
+    and autograd through scaled_dot_product_attention."""
+    q, k, v, o, lse, do, kw = captured
+    causal, window, softcap = kw["causal"], kw["window"], kw["softcap"]
+    check(window == 0 and softcap == 0.0,
+          f"training path: K4 window {window}, softcap {softcap}")
+    names = ("dq", "dk", "dv")
+    checks, lse_err = {}, {}
+    g = torch.Generator(device=dev).manual_seed(22)
+    syn = [torch.randn(t.shape, generator=g, device=dev).to(t.dtype) for t in (q, k, v)]
+    fwd_err = k4_compare_rows(*syn, **kw)
+    check(torch.equal(o, attn_ops._forward(q, k, v, causal, window, softcap, False)[0]),
+          "the training run's saved K4 output is the kernel's")
+    f64 = k4_against_float64(q, k, v, causal)
+    check(f64["kernel_beyond_f64"] <= f64["plain_beyond_f64"],
+          f"training path: K4 misses the float64 attention more often than its plain "
+          f"version ({f64})")
+    o_syn, lse_syn = attn_ops._forward(*syn, causal, window, softcap, want_lse=True)
+    do_syn = torch.randn(do.shape, generator=g, device=dev).to(do.dtype)
+    for label, args in (("run", (q, k, v, o, lse, do)),
+                        ("normal", (*syn, o_syn, lse_syn, do_syn))):
+        po, pl = attn_ref.flash_attention_ref(*args[:3], **kw, return_lse=True)
+        lse_err[label] = close_to_plain(args[4], pl, f"K4's row log-sum-exp ({label})")
+        got = attn_ops.flash_attention_bwd(*args, **kw)
+        plain = attn_ref.flash_attention_bwd_ref(*args[:3], po, pl, args[5], **kw)
+        truth = attention_bwd_f64(args[0], args[1], args[2], args[5], **kw)
+        checks[label] = bwd_errors(names, got, plain, truth)
+        del got, plain, truth, po, pl
+        torch.cuda.empty_cache()
+        check(all(r["held"] for r in checks[label].values()),
+              f"K4-bwd within 2x the plain backward's error from float64 ({label}): "
+              f"{checks[label]}")
+    grid_err, grid_fwd_err, grid_lse_err = 0.0, 0.0, 0.0
+    for B_, Sq, Skv, KV, G, hd, c_, w_, sc_, dtype in K4_BWD_GRID:
+        qkv = torch.randn(B_, max(Sq, Skv), KV, G + 2, hd, generator=g, device=dev).to(dtype)
+        a = (qkv[:, :Sq, :, :G], qkv[:, :Skv, :, G], qkv[:, :Skv, :, G + 1])
+        okw = dict(causal=c_, window=w_, softcap=sc_)
+        grid_fwd_err = max(grid_fwd_err, k4_compare(*a, **okw))
+        oo, ll = attn_ops._forward(*a, c_, w_, sc_, want_lse=True)
+        check(torch.equal(oo, attn_ops._forward(*a, c_, w_, sc_, False)[0]),
+              "the log-sum-exp store leaves K4's output alone")
+        _, pl = attn_ref.flash_attention_ref(*a, **okw, return_lse=True)
+        grid_lse_err = max(grid_lse_err, close_to_plain(ll, pl, "K4's row log-sum-exp"))
+        dd = torch.randn(oo.shape, generator=g, device=dev).to(dtype)
+        got = attn_ops.flash_attention_bwd(*a, oo, ll, dd, **okw)
+        plain = attn_ref.flash_attention_bwd_ref(*a, oo, ll, dd, **okw)
+        grid_err = max([grid_err] + [close_to_plain(x, y) for x, y in zip(got, plain)])
+    lse_err["grid"] = grid_lse_err
+    print(f"K4 forward at the training shape {tuple(q.shape)} (causal {causal}): within 1 "
+          f"bf16 ulp of its plain version on N(0, 1) inputs (max abs err {fwd_err:.3e}); on "
+          f"the run's layer-0 q, k, v against attention in float64: outputs more than 1 bf16 "
+          f"ulp (+1e-5) off: kernel {f64['kernel_beyond_f64']}, plain "
+          f"{f64['plain_beyond_f64']} of {f64['n']:,}; row log-sum-exp within the float32 "
+          f"bound of the plain forward's (max abs err: the run's saved one "
+          f"{lse_err['run']:.3e}, N(0, 1) {lse_err['normal']:.3e}, the {len(K4_BWD_GRID)} "
+          f"option cases {grid_lse_err:.3e}; their outputs {grid_fwd_err:.3e})")
+    print(f"K4-bwd within 2x the bf16 plain backward's error from float64 on the run's "
+          f"layer-0 tensors {tuple(q.shape)} ({json.dumps(checks['run'])}) and on N(0, 1) "
+          f"inputs ({json.dumps(checks['normal'])}); within tolerance of the plain backward "
+          f"on {len(K4_BWD_GRID)} option cases (max abs err {grid_err:.3e})")
+    B_, S_, KV, G, hd = q.shape
+    H = KV * G
+    fn = lambda: attn_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+    ms = device_ms(fn, n=5, reps=3)
+    plain_ms = device_ms(lambda: attn_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                         n=2, reps=3)
+    qs = q.detach().permute(0, 2, 3, 1, 4).reshape(B_, H, S_, hd).contiguous().requires_grad_()
+    ks = k.detach().permute(0, 2, 1, 3).contiguous().requires_grad_()
+    vs = v.detach().permute(0, 2, 1, 3).contiguous().requires_grad_()
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                           enable_gqa=True)
+    gs = do.permute(0, 2, 3, 1, 4).reshape(B_, H, S_, hd).contiguous()
+    library_ms = device_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
+                                                       retain_graph=True), n=5, reps=3)
+    flops = 5 * 2 * B_ * H * hd * live_pairs(S_, kw["window"])
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o, do, lse, q, k, v))
+    bound_ms = 1e3 * max(flops / bf16_flops, nbytes / bw)
+    bound_by = "operations" if flops / bf16_flops >= nbytes / bw else "bytes"
+    print(f"K4-bwd flash_attention_bwd {tuple(q.shape)} bf16 causal: kernel {ms:.3f} ms on the "
+          f"device ({flops / ms / 1e9:.1f} TFLOP/s of the 5 products), plain {plain_ms:.3f} ms, "
+          f"autograd through SDPA {library_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({flops:.4e} FLOPs, {nbytes / 1e6:.1f} MB; {bound_ms / ms:.1%} of it)")
+    # against the plain version, as for the other kernels: on N(0, 1) inputs
+    # and the grid (on the run's tensors, whose gradients reach ~1e11, one
+    # bf16 ulp is ~1e9; their errors are in `checks`, relative too)
+    err = max(grid_err, *(r["kernel_vs_plain"] for r in checks["normal"].values()))
+    fwd = dict(err=max(fwd_err, grid_fwd_err), normal_err=fwd_err, grid_err=grid_fwd_err,
+               against_float64=f64, lse_err=lse_err)
+    return dict(err=err, fwd=fwd, checks=checks, grid_err=grid_err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tflops=flops / ms / 1e9, shape=list(q.shape))
+
+
+def k3_bwd_phase(dev, captured, bw) -> dict:
+    """K3-bwd on the training run's own layer-0 norm input, weight and dy,
+    and on N(0, 1) inputs of the same shape: dx and dw within 2x the bf16
+    plain backward's error from float64; timed beside its bound, the plain
+    version and autograd through F.rms_norm."""
+    x, w, dy = captured
+    x2, dy2 = x.reshape(-1, x.shape[-1]), dy.reshape(-1, dy.shape[-1])
+    g = torch.Generator(device=dev).manual_seed(23)
+    xs = torch.randn(x2.shape, generator=g, device=dev).to(x.dtype)
+    ws = (0.1 * torch.randn(w.shape, generator=g, device=dev)).to(w.dtype)
+    dys = torch.randn(dy2.shape, generator=g, device=dev).to(dy.dtype)
+    checks = {}
+    for label, args in (("run", (x2, w, dy2)), ("normal", (xs, ws, dys))):
+        got = norm_ops.rms_norm_bwd(*args)
+        plain = norm_ref.rms_norm_bwd_ref(*args)
+        checks[label] = bwd_errors(("dx", "dw"), got, plain, rms_norm_bwd_f64(*args))
+        check(all(r["held"] for r in checks[label].values()),
+              f"K3-bwd within 2x the plain backward's error from float64 ({label}): "
+              f"{checks[label]}")
+    print(f"K3-bwd within 2x the bf16 plain backward's error from float64 on the run's "
+          f"layer-0 norm input {tuple(x2.shape)} ({json.dumps(checks['run'])}) and on N(0, 1) "
+          f"inputs ({json.dumps(checks['normal'])})")
+    ms = device_ms(lambda: norm_ops.rms_norm_bwd(x2, w, dy2), n=20)
+    plain_ms = device_ms(lambda: norm_ref.rms_norm_bwd_ref(x2, w, dy2), n=5)
+    xl = x2.detach().clone().requires_grad_()
+    wl = (1.0 + w.float()).to(w.dtype).requires_grad_()
+    y = torch.nn.functional.rms_norm(xl, (x2.shape[-1],), weight=wl, eps=1e-6)
+    library_ms = device_ms(lambda: torch.autograd.grad(y, (xl, wl), dy2, retain_graph=True),
+                           n=20)
+    nbytes = 3 * x2.numel() * x2.element_size() + 2 * w.numel() * w.element_size()
+    bound_ms = 1e3 * nbytes / bw
+    print(f"K3-bwd rms_norm_bwd {tuple(x2.shape)} bf16: kernel {ms:.4f} ms on the device, "
+          f"plain {plain_ms:.4f} ms, autograd through F.rms_norm {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB; {bound_ms / ms:.1%} of it)")
+    err = max(r["kernel_vs_plain"] for r in checks["normal"].values())
+    return dict(err=err, checks=checks, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by="bytes", shape=list(x2.shape))
+
+
+def train_path(dev, bw, bf16_flops) -> dict:
+    """Gemma 2B at full size trained by `launch/train.train`: 2 phases of
+    K = 4 steps at 2 x 2,048 tokens, the first on a random mask drawn on
+    the card, the second gradient-guided (bisection: 2.5B coordinates are
+    above `selection._SMALL`), the delta encoded at each phase's end and
+    applied to the edge's copy of the init. Each step's kernel launches
+    are read and must be `train_expected_launches`; every loss finite;
+    at step 1 every leaf's gradient finite and not all zero (F11's
+    symptom); the edge's params after both deltas equal the trained ones
+    rounded through fp16 on the coordinates either mask selected, and the
+    init elsewhere. Prints each step's loss and stage times (CUDA events;
+    sampling and encoding on the host clock), the peak memory beside its
+    prediction, the step's MFU against `roofline.analytic` and the
+    downlink per phase. K3-bwd and K4-bwd are then held and timed on the
+    run's layer-0 tensors, captured by wrapping the wrappers during step
+    1 (the last call of each is layer 0's)."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    check(build_model(cfg).num_params() == TRAIN_PARAMS and cfg.remat,
+          f"{cfg.name}: {TRAIN_PARAMS:,} parameters under remat")
+    want = train_expected_launches(cfg)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    captured, counts, grads_ok = {}, [], {}
+    real_attn_bwd, real_norm_bwd = attn_ops.flash_attention_bwd, norm_ops.rms_norm_bwd
+
+    # copies: w is a view into the optimizer's flat params, which K1 then
+    # rewrites in place
+    def cap_attn(q, k, v, o, lse, do, **kw):
+        captured["attn"] = (*(t.detach().clone() for t in (q, k, v, o, lse, do)), kw)
+        return real_attn_bwd(q, k, v, o, lse, do, **kw)
+
+    def cap_norm(x, w, dy, eps=1e-6):
+        captured["norm"] = tuple(t.detach().clone() for t in (x, w, dy))
+        return real_norm_bwd(x, w, dy, eps)
+
+    clock = StageClock()
+    last = {}
+
+    def log(it, loss, down, state):
+        nonlocal last
+        now = train_counts()
+        counts.append({k: now[k] - last[k] for k in now})
+        last = now
+        clock.step += 1
+        if it == 0:
+            attn_ops.flash_attention_bwd, norm_ops.rms_norm_bwd = real_attn_bwd, real_norm_bwd
+            leaves = tree.leaves(state.grads)
+            grads_ok["finite"] = all(bool(torch.isfinite(g).all()) for g in leaves)
+            grads_ok["nonzero"] = all(bool((g != 0).any()) for g in leaves)
+            grads_ok["leaves"] = len(leaves)
+        print(f"train step {it}: loss {loss:.4f}, downlink so far {down:,} bytes; "
+              f"launches {counts[-1]}")
+
+    stream = TokenStream(StreamConfig(vocab_size=TRAIN_STREAM_VOCAB, seed=1))
+    attn_ops.flash_attention_bwd, norm_ops.rms_norm_bwd = cap_attn, cap_norm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    last = train_counts()
+    t1 = time.perf_counter()
+    try:
+        r = train(cfg, params, stream, steps=TRAIN_K * TRAIN_PHASES, phase_len=TRAIN_K,
+                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, gamma=TRAIN_GAMMA, lr=TRAIN_LR,
+                  clip=TRAIN_CLIP, mask_gen=torch.Generator(device=dev).manual_seed(1),
+                  log=log, clock=clock)
+    finally:
+        attn_ops.flash_attention_bwd, norm_ops.rms_norm_bwd = real_attn_bwd, real_norm_bwd
+    train_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in r.losses), f"every loss finite: {r.losses}")
+    check(grads_ok.get("finite") and grads_ok.get("nonzero"),
+          f"step 1: every leaf's gradient finite and not all zero ({grads_ok})")
+    check(all(c == want for c in counts), f"launches per step {counts}, want {want}")
+
+    # the edge: the init with both deltas applied
+    t2 = time.perf_counter()
+    edge = params
+    del params
+    for d in r.deltas:
+        edge = apply_delta(edge, d)
+    same = all(torch.equal(e, torch.where(m1 | m2, t.detach().to(torch.float16).to(t.dtype),
+                                          t.detach()))
+               for e, t, m1, m2 in zip(tree.leaves(edge), tree.leaves(r.state.params),
+                                       tree.leaves(r.masks[0]), tree.leaves(r.masks[1])))
+    check(same, "edge params after the deltas: the trained ones through fp16 where a mask "
+                "selected, the init elsewhere")
+    edge_s = time.perf_counter() - t2
+    del edge
+    downlink = [dict(selected=sum(int(m.sum()) for m in tree.leaves(mk)),
+                     values_bytes=d.value_bytes, mask_gz_bytes=d.mask_bytes,
+                     mask_raw_bytes=-(-d.n_total // 8), total_bytes=d.total_bytes)
+                for mk, d in zip(r.masks, r.deltas)]
+    losses = r.losses
+    del r
+    torch.cuda.empty_cache()
+
+    steps = clock.by_step()
+    step_ms = [s["forward_backward"] + s.get("clip", 0.0) + s["adam"] for s in steps]
+    cost = analytic_cost(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH))
+    warm = statistics.median(step_ms[1:])
+    mfu = cost["model_flops"] / (warm / 1e3 * PEAK_FLOPS_BF16)
+    for i, s in enumerate(steps):
+        print(f"train step {i} stages (ms; CUDA events; sample and encode on the host "
+              f"clock): " + ", ".join(f"{k} {v:.2f}" for k, v in s.items()))
+    print(f"train: {cfg.name} ({TRAIN_PARAMS:,} params, {cfg.num_layers} layers, remat) "
+          f"{TRAIN_PHASES} phases of K={TRAIN_K} at {TRAIN_BATCH} x {TRAIN_SEQ} tokens; "
+          f"losses {[round(x, 4) for x in losses]}; step (forward+backward, clip, K1) "
+          f"{[round(x, 1) for x in step_ms]} ms, median after the first {warm:.1f} ms; MFU "
+          f"{mfu:.3f} ({cost['model_flops']:.4e} model FLOPs a step at "
+          f"{PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s); peak memory {peak:,} bytes (predicted "
+          f"{TRAIN_PEAK_PREDICTED:,.0f}); init {t_init:.1f} s, train() {train_s:.1f} s, "
+          f"edge apply and check {edge_s:.1f} s")
+    print(f"train downlink per phase: {json.dumps(downlink)}")
+    print(f"train launches per step {counts[0]} (all {len(counts)} steps equal, as "
+          f"derived from the config); step-1 gradients finite and non-zero on all "
+          f"{grads_ok['leaves']} leaves")
+    return dict(cfg=cfg, steps=steps, step_ms=step_ms, warm_step_ms=warm, mfu=mfu,
+                model_flops=cost["model_flops"], peak=peak, counts=counts, want=want,
+                losses=losses, downlink=downlink, t_init=t_init, train_s=train_s,
+                edge_s=edge_s, captured=captured, seconds=time.perf_counter() - t0)
+
+
 T_START = time.perf_counter()
 
 
@@ -2209,7 +2647,17 @@ def main() -> None:
     vlm = vlm_phase(dev, bw, bf16_flops)
     vk3, vk4, vlm_shares, vlm_s = (vlm[k] for k in ("k3", "k4_cross", "shares", "seconds"))
 
-    # 13. kernels line
+    # 13. the training path (Gemma 2B at full size), then K4-bwd and K3-bwd
+    # on its own layer-0 tensors
+    tr = train_path(dev, bw, bf16_flops)
+    cap = tr.pop("captured")
+    k4b = k4_bwd_phase(dev, cap["attn"], bw, bf16_flops)
+    k3b = k3_bwd_phase(dev, cap["norm"], bw)
+    del cap
+    torch.cuda.empty_cache()
+    train_launches = {k: sum(c[k] for c in tr["counts"]) for k in tr["want"]}
+
+    # 14. kernels line
     kernels = [
         dict(name="masked_adam_3d", route="cuda",
              source="src/repro_torch/csrc/masked_adam.cu",
@@ -2227,7 +2675,9 @@ def main() -> None:
              plain_ms=k1["plain_ms"],
              bound_ms=k1["bound_ms"], bound_by="bytes", library_ms=None,
              b1_ms=k1["b1_ms"], b1_plain_ms=k1["b1_plain_ms"],
-             b1_bound_ms=k1["b1_bound_ms"]),
+             b1_bound_ms=k1["b1_bound_ms"],
+             train_launches=train_launches["masked_adam_3d"],
+             train_adam_ms=statistics.median(s["adam"] for s in tr["steps"])),
         dict(name="topk_threshold_bits", route="cuda",
              source="src/repro_torch/csrc/topk_mask.cu",
              replaces="src/repro/kernels/topk_mask/topk_mask.py:50",
@@ -2244,6 +2694,7 @@ def main() -> None:
         dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:25",
              launches=llm_launches["rms_norm"], moe_launches=moe_launches["rms_norm"],
+             train_launches=train_launches["rms_norm"],
              max_abs_err=max(k3["err"], mk["k3_err"], hk3["err"], rk3["err"], vk3["err"]),
              ms=k3["ms"],
              call_ms=k3["call_ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
@@ -2273,6 +2724,7 @@ def main() -> None:
              launches_by_route=llm_launches["flash_attention_by_route"],
              moe_launches=moe_launches["flash_attention"],
              moe_launches_by_route=moe_launches["flash_attention_by_route"],
+             train_launches=train_launches["flash_attention"],
              hybrid_launches=hyb["launches"]["flash_attention"],
              hybrid_launches_by_route=hyb["launches"]["flash_attention_by_route"],
              encdec_launches=enc["launches"]["flash_attention"],
@@ -2280,7 +2732,11 @@ def main() -> None:
              vlm_launches=vlm["launches"]["flash_attention"],
              vlm_launches_by_route=vlm["launches"]["flash_attention_by_route"],
              max_abs_err=max(k4["err"], mk["k4_err"], hk4["k4_err"], ek4["k4_err"],
-                             xk4["k4_err"], vk4["k4_err"]),
+                             xk4["k4_err"], vk4["k4_err"], k4b["fwd"]["err"]),
+             train_shape=k4b["shape"], train_max_abs_err=k4b["fwd"]["normal_err"],
+             train_against_float64=k4b["fwd"]["against_float64"],
+             lse_max_abs_err=k4b["fwd"]["lse_err"],
+             option_grid_max_abs_err=k4b["fwd"]["grid_err"],
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by="operations", library_ms=k4["library_ms"],
              library_call="scaled_dot_product_attention(is_causal=True, "
@@ -2308,6 +2764,33 @@ def main() -> None:
              memory_library_call="scaled_dot_product_attention(is_causal=False, "
                                  "enable_gqa=G > 1) at the same shape",
              sass=sass),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:89",
+             replaces_what="the gradient of flash_attention_4d, which the JAX package "
+                           "takes with jax.value_and_grad of its plain attention",
+             launches=train_launches["flash_attention_bwd"],
+             launches_per_step=tr["want"]["flash_attention_bwd"],
+             max_abs_err=k4b["err"], max_abs_err_on="N(0, 1) inputs and the option grid",
+             ms=k4b["ms"], plain_ms=k4b["plain_ms"],
+             bound_ms=k4b["bound_ms"], bound_by=k4b["bound_by"],
+             library_ms=k4b["library_ms"],
+             library_call="torch.autograd.grad through scaled_dot_product_attention("
+                          "is_causal=True, enable_gqa=True)",
+             shape=k4b["shape"], tflops=k4b["tflops"], against_float64=k4b["checks"],
+             option_grid_max_abs_err=k4b["grid_err"]),
+        dict(name="rms_norm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm_bwd.cu",
+             replaces="src/repro/kernels/rmsnorm/rmsnorm.py:25",
+             replaces_what="the gradient of rms_norm_2d, which the JAX package takes "
+                           "with jax.value_and_grad of models/layers.rms_norm",
+             launches=train_launches["rms_norm_bwd"],
+             launches_per_step=tr["want"]["rms_norm_bwd"],
+             max_abs_err=k3b["err"], max_abs_err_on="N(0, 1) inputs", ms=k3b["ms"],
+             plain_ms=k3b["plain_ms"],
+             bound_ms=k3b["bound_ms"], bound_by=k3b["bound_by"],
+             library_ms=k3b["library_ms"],
+             library_call="torch.autograd.grad through torch.nn.functional.rms_norm",
+             shape=k3b["shape"], against_float64=k3b["checks"]),
     ]
     print(f"AMS summary: eager iteration busy share {trace['busy_share']:.3f} "
           f"({trace['launches']} launches, wall {trace['wall_ms']:.2f} ms); race at "
@@ -2366,6 +2849,12 @@ def main() -> None:
                                            enc["cfg"].name: enc_shares,
                                            f"{vlm['cfg'].name} ({vlm['cfg'].num_layers} "
                                            "layers)": vlm_shares}))
+    print(f"Train summary: {tr['cfg'].name} step {tr['warm_step_ms']:.1f} ms (median after "
+          f"the first), MFU {tr['mfu']:.3f}, peak {tr['peak']:,} bytes (predicted "
+          f"{TRAIN_PEAK_PREDICTED:,.0f}); K4-bwd {k4b['ms']:.3f} ms (SDPA backward "
+          f"{k4b['library_ms']:.3f}, bound {k4b['bound_ms']:.4f}), K3-bwd {k3b['ms']:.4f} ms "
+          f"(F.rms_norm backward {k3b['library_ms']:.4f}, bound {k3b['bound_ms']:.4f}); the "
+          f"phase took {tr['seconds']:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -66,8 +66,8 @@ _STACK_SEEN: set = set()
 
 
 def encode_delta(params_new, mask, value_dtype="float16") -> ModelDelta:
-    """One session's delta: masked values gathered leaf by leaf on the
-    host, then cast to ``value_dtype``."""
+    """One session's delta: masked values gathered leaf by leaf beside the
+    params, pulled to the host, then cast to ``value_dtype``."""
     if not timing.enabled():
         return _encode_delta(params_new, mask, value_dtype)
     t0 = time.perf_counter()
@@ -78,14 +78,20 @@ def encode_delta(params_new, mask, value_dtype="float16") -> ModelDelta:
     return d
 
 
+def _picked(p: torch.Tensor, m: torch.Tensor) -> np.ndarray:
+    """The masked values of one leaf, gathered beside it and pulled in its
+    own dtype (bfloat16, which numpy lacks, as float32: exact)."""
+    v = p.detach().reshape(-1)[m.reshape(-1).to(torch.bool)]
+    return _to_numpy(v.to(torch.float32) if v.dtype == torch.bfloat16 else v)
+
+
 def _encode_delta(params_new, mask, value_dtype) -> ModelDelta:
     p_leaves = tree.leaves(params_new)
     m_leaves = tree.leaves(mask)
     n_total = sum(l.numel() for l in p_leaves)
-    flat_m = np.concatenate([_to_numpy(m).reshape(-1).astype(bool)
+    flat_m = np.concatenate([_to_numpy(m.reshape(-1).to(torch.bool))
                              for m in m_leaves]) if m_leaves else np.zeros(0, bool)
-    picked = [_to_numpy(p).reshape(-1)[_to_numpy(m).reshape(-1).astype(bool)]
-              for p, m in zip(p_leaves, m_leaves)]
+    picked = [_picked(p, m) for p, m in zip(p_leaves, m_leaves)]
     values = (np.concatenate(picked) if picked
               else np.zeros((0,))).astype(value_dtype)
     return ModelDelta(values=values, packed_mask=_pack_mask_bits(flat_m),

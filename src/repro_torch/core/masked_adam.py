@@ -14,6 +14,11 @@ Trees on the card always take the fused kernel
 trees on the CPU take the per-leaf float32 expression, which is the
 kernel's plain version.
 
+`FlatMaskedAdam` is the same step for one large model trained in place
+(the LLM trainer): params, gradients, moments, mask and u live in flat
+per-dtype buffers across steps, the model's leaves are views into them,
+and the kernel updates p, m and v where they lie, with no per-step copy.
+
 `momentum_update` (the Just-In-Time baseline's momentum SGD) is plain
 PyTorch on either device: the JAX package has no kernel for it.
 """
@@ -24,7 +29,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree
-from repro_torch.kernels.masked_adam.ops import (bias_correction,
+from repro_torch.kernels import stacking
+from repro_torch.kernels.masked_adam.ops import (bias_correction, masked_adam_3d,
                                                  masked_adam_stacked)
 from repro_torch.kernels.masked_adam.ref import masked_adam_ref
 
@@ -74,6 +80,73 @@ def masked_adam_update(params, grads, state: MaskedAdamState, mask, *,
     p, m, v, u = (tree.unflatten(treedef, [q[j] for q in quads])
                   for j in range(4))
     return p, MaskedAdamState(m, v, i), u
+
+
+class FlatMaskedAdam:
+    """Masked Adam for one model whose state is kept flat and updated in
+    place: per param dtype, one ``(1, rows, 128)`` buffer each of params
+    ``p``, gradients ``g``, moments ``m`` (the param dtype, as
+    `init_state` gives) and ``v`` (float32), the mask (bool) and the
+    last update ``u`` (float32), laid out by `kernels.stacking` for a
+    stack of one (zero padding past the leaves).
+
+    ``params`` is the model's tree of leaves that are views into ``p``
+    and require grad; each leaf's ``.grad`` is a view into ``g``, so
+    backward accumulates there (`zero_grad` clears it first). ``grads``,
+    ``mask`` and ``u`` are trees of views into their buffers. `step`
+    runs one kernel launch per dtype group, writing p, m, v and u in
+    place: the arithmetic of `masked_adam_update`, bit for bit.
+
+    Building it copies the given params once into ``p``; the caller drops
+    its own tree afterwards."""
+
+    def __init__(self, params):
+        one = tree.tree_map(lambda l: l.detach().unsqueeze(0), params)
+        self.plan = stacking.stack_plan(one)
+        with torch.no_grad():
+            self.p = stacking.flatten_tree(one, self.plan)
+        del one
+        self.g = tuple(torch.zeros_like(b) for b in self.p)
+        self.m = tuple(torch.zeros_like(b) for b in self.p)
+        self.v = tuple(torch.zeros_like(b, dtype=torch.float32) for b in self.p)
+        self.u = tuple(torch.zeros_like(b, dtype=torch.float32) for b in self.p)
+        self.mask_buf = tuple(torch.zeros_like(b, dtype=torch.bool) for b in self.p)
+        self.count = torch.zeros((1,), dtype=torch.int32, device=self.p[0].device)
+        self.params = self.views(self.p)
+        for leaf in tree.leaves(self.params):
+            leaf.requires_grad_(True)
+        self.grads = self.views(self.g)
+        for leaf, g in zip(tree.leaves(self.params), tree.leaves(self.grads)):
+            leaf.grad = g
+        self.mask = self.views(self.mask_buf)
+        self.u_tree = self.views(self.u)
+
+    def views(self, bufs):
+        """The tree whose leaves are views into ``bufs`` (one per dtype
+        group, laid out like ``p``)."""
+        return tree.tree_map(lambda l: l[0], stacking.unflatten_tree(bufs, self.plan))
+
+    def zero_grad(self) -> None:
+        for g in self.g:
+            g.zero_()
+
+    def set_mask(self, mask) -> None:
+        """Copy a mask tree (bool or 0/1, like params) into the flat mask."""
+        with torch.no_grad():
+            for dst, src in zip(tree.leaves(self.mask), tree.leaves(mask)):
+                dst.copy_(src)
+
+    def step(self, *, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+             eps: float = 1e-8) -> None:
+        """One inner iteration (paper lines 7-13) over the gradients in
+        ``g``, in place; ``u`` holds its update afterwards."""
+        i, bc = bias_correction(self.count, lr=lr, b1=b1, b2=b2)
+        with torch.no_grad():
+            for p, g, m, v, b, u in zip(self.p, self.g, self.m, self.v, self.mask_buf,
+                                        self.u):
+                masked_adam_3d(p, g, m, v, b, bc, b1=b1, b2=b2, eps=eps,
+                               out=(p, m, v, u))
+        self.count = i
 
 
 def adam_update(params, grads, state, **kw):

@@ -142,10 +142,12 @@ def _stacked_select(u_stacked, frac: float):
 
 def random_mask(gen: torch.Generator, params, frac: float):
     """Uniform Bernoulli(frac) mask like ``params``, drawn leaf by leaf in
-    flatten order from ``gen`` (a CPU generator), placed beside each
-    leaf."""
+    flatten order from ``gen`` on the generator's device (a CPU generator
+    gives the same mask wherever the params are; a CUDA one draws a
+    billion-coordinate mask on the card), placed beside each leaf."""
     return tree.tree_map(
-        lambda l: (torch.rand(l.shape, generator=gen) < frac).to(l.device),
+        lambda l: (torch.rand(l.shape, generator=gen, device=gen.device)
+                   < frac).to(l.device),
         params)
 
 

@@ -125,6 +125,7 @@ struct TcParams {
   float scale;    // hd^-0.5
   float softcap;  // 0: none
   float inv_cap;  // 1 / softcap
+  float* lse;     // (B, H, Sq) row log-sum-exp for the backward, or null
 };
 
 template <int HD>
@@ -536,6 +537,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) inv[r] = 1.0f / fmaxf(l[r], 1e-30f);
+  if (p.lse != nullptr && lane % 4 == 0) {  // m + log l, one lane per row
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < p.Sq)
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row0 + 8 * r] =
+            m[r] + logf(fmaxf(l[r], 1e-30f));
+  }
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
 #pragma unroll
@@ -661,6 +669,7 @@ struct Params {
   int Sq, Skv, G;
   int causal, window;
   float softcap, scale;
+  float* lse;  // (B, H, Sq) row log-sum-exp for the backward, or null
 };
 
 // Rows [r0, r0+64) of an (S, HD) matrix with row stride `ss` (elements)
@@ -850,6 +859,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_f32_kernel(Params p) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0)  // m + log l, one thread per row
+      p.lse[(static_cast<long long>(b) * gridDim.y + h) * p.Sq + qi] = m[i] + logf(denom);
 #pragma unroll
     for (int jj = 0; jj < kNJ; ++jj) {
       if (!col_live(jj)) continue;
@@ -884,8 +895,11 @@ extern "C" {
 // device pointers, 16-byte aligned, the last axis contiguous. `strides`
 // holds 14 element strides: q's (b, s, kv, g), k's (b, s, kv), v's (b, s,
 // kv), o's (b, s, kv, g); each a multiple of 16 bytes. hd is 64, 112, 128
-// or 256. They launch on `stream` of CUDA device `device` and return the
-// launch's cudaError_t (0 on success).
+// or 256. `lse`, when not null, receives the float32 row log-sum-exp of the
+// masked scores, (B, KV * G, Sq) contiguous, which the backward
+// (flash_attention_bwd.cu) reads; the serving path passes null. They
+// launch on `stream` of CUDA device `device` and return the launch's
+// cudaError_t (0 on success).
 
 // bfloat16 tensors: the tensor-core kernel. Its tensor maps are encoded
 // here at every call, over the real head dim; hd 112 runs the hd 128
@@ -893,7 +907,8 @@ extern "C" {
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                              int hd, int B, int Sq, int Skv, int KV, int G,
                              const long long* strides, int causal, int window,
-                             float softcap, float scale, int device, void* stream) {
+                             float softcap, float scale, void* lse, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Sq == 0 || B == 0) return 0;
@@ -924,6 +939,7 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
   p.scale = scale;
   p.softcap = softcap;
   p.inv_cap = softcap != 0.0f ? 1.0f / softcap : 0.0f;
+  p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: err = launch_wgmma<64>(tq, tk, tv, to, p, B, s); break;
@@ -938,7 +954,8 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
                             int hd, int B, int Sq, int Skv, int KV, int G,
                             const long long* strides, int causal, int window,
-                            float softcap, float scale, int device, void* stream) {
+                            float softcap, float scale, void* lse, int device,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Sq == 0 || B == 0) return 0;
@@ -949,7 +966,7 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o
            st[4], st[5], st[6],
            st[7], st[8], st[9],
            st[10], st[11], st[12], st[13],
-           Sq, Skv, G, causal, window, softcap, scale};
+           Sq, Skv, G, causal, window, softcap, scale, static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: err = launch_f32<64>(p, B, KV * G, s); break;

@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("masked_adam", "topk_mask", "rmsnorm", "flash_attention")
+SOURCES = ("masked_adam", "topk_mask", "rmsnorm", "flash_attention", "rmsnorm_bwd",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -9,7 +9,10 @@ runs as one launch per distinct param dtype over buffers laid out by
 `repro_torch.kernels.stacking`. `masked_adam_flat` is the same step for
 a caller that keeps p, m, v and the mask in that flat layout across
 steps (the fused phase's K loop): only the gradients are flattened, one
-``torch.cat`` per dtype group, and the outputs stay flat.
+``torch.cat`` per dtype group, and the outputs stay flat. Given ``out``,
+`masked_adam_3d` writes p', m', v' and u into those buffers, which may be
+p, m and v themselves (`core.masked_adam.FlatMaskedAdam`, the LLM
+trainer's in-place step).
 
 ``launches`` counts kernel launches (plain-version calls do not count).
 """
@@ -62,14 +65,23 @@ def _check_kernel_args(p, g, m, v, mask, bc):
 
 
 def masked_adam_3d(p, g, m, v, mask, bc, *, b1: float, b2: float,
-                   eps: float):
+                   eps: float, out=None):
     """One fused masked-Adam step over ``(B, rows, 128)`` buffers; ``bc``
     is the (B,) float32 bias correction per session. Returns
     ``(p', m', v', u)`` with p', m', v' in their source dtypes and u in
-    float32."""
+    float32: new buffers, or the four of ``out`` (p', m', v' like p, m,
+    v, u float32), which may be p, m and v themselves: each thread of the
+    kernel reads its 8 coordinates of every input before it writes them,
+    so the step can run in place (a 2.5B-parameter model's state has no
+    room for a second copy)."""
     global launches
     if p.device.type == "cpu":
-        return masked_adam_ref(p, g, m, v, mask, bc, b1=b1, b2=b2, eps=eps)
+        new = masked_adam_ref(p, g, m, v, mask, bc, b1=b1, b2=b2, eps=eps)
+        if out is None:
+            return new
+        for dst, src in zip(out, new):
+            dst.copy_(src)
+        return tuple(out)
     if p.device.type != "cuda":
         raise ValueError(f"masked_adam_3d runs on cuda or cpu, not {p.device}")
     _check_kernel_args(p, g, m, v, mask, bc)
@@ -77,8 +89,17 @@ def masked_adam_3d(p, g, m, v, mask, bc, *, b1: float, b2: float,
     fn = lib.masked_adam_3d
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    p_out, m_out, v_out = (torch.empty_like(t) for t in (p, m, v))
-    u_out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    if out is None:
+        p_out, m_out, v_out = (torch.empty_like(t) for t in (p, m, v))
+        u_out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    else:
+        p_out, m_out, v_out, u_out = out
+        for src, dst in ((p, p_out), (m, m_out), (v, v_out), (p, u_out)):
+            want = torch.float32 if dst is u_out else src.dtype
+            if (dst.shape != p.shape or dst.dtype != want or dst.device != p.device
+                    or not dst.is_contiguous() or dst.data_ptr() % 16):
+                raise ValueError("out must hold contiguous, 16-byte aligned p', m', "
+                                 "v' like p, m, v and a float32 u like p")
     b, rows, lanes = p.shape
     stream = torch.cuda.current_stream(p.device)
     err = fn(p.data_ptr(), _DTYPE_CODES[p.dtype],

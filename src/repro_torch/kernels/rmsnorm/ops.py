@@ -1,4 +1,5 @@
-"""Wrapper for the RMSNorm kernel (``csrc/rmsnorm.cu``).
+"""Wrapper for the RMSNorm kernels (``csrc/rmsnorm.cu`` forward,
+``csrc/rmsnorm_bwd.cu`` backward).
 
 `rms_norm` normalises the last axis of ``x`` over any leading dims. A
 CUDA tensor launches the kernel (or the wrapper raises on what the kernel
@@ -11,7 +12,16 @@ chunk per thread for few rows (a decode step), and a block per row that
 caches what fits in registers for the rest (ragged widths, unaligned
 rows, very long rows).
 
-``launches`` counts kernel launches (plain-version calls do not count).
+Where autograd records (grad mode on and x or w requires grad), the call
+goes through `RMSNorm`, a ``torch.autograd.Function`` that saves x and w;
+its backward gives dx and dw through `rms_norm_bwd`: on CUDA tensors the
+backward kernel (one launch of its C entry point: a row pass that writes
+dx and per-block float32 dw partials, then a fixed-order column sum), or
+the wrapper raises; on CPU tensors the plain version,
+`ref.rms_norm_bwd_ref`. There is no other route.
+
+``launches`` counts forward kernel launches and ``bwd_launches`` backward
+ones (plain-version calls do not count).
 """
 from __future__ import annotations
 
@@ -20,9 +30,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+from repro_torch.kernels.rmsnorm.ref import rms_norm_bwd_ref, rms_norm_ref
 
 launches = 0
+bwd_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -31,6 +42,10 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
 _VARIANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                      ctypes.c_int]
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_void_p]
 VARIANTS = ("block_per_row", "split_row", "warp_per_row")
 
 
@@ -68,9 +83,7 @@ def variant(x: torch.Tensor, w: torch.Tensor) -> str:
     return VARIANTS[v]
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
-    """``x * rsqrt(mean(x^2, -1) + eps) * (1 + w)`` in float32, in x's
-    dtype; x (..., d) float32 or bfloat16, w (d,) float32 or bfloat16."""
+def _forward(x: torch.Tensor, w: torch.Tensor, eps: float):
     global launches
     if x.device.type == "cpu":
         return rms_norm_ref(x, w, eps)
@@ -90,3 +103,64 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     build.check(lib, err, "rms_norm launch")
     launches += 1
     return out
+
+
+def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                 eps: float = 1e-6):
+    """(dx, dw) of `rms_norm` at (x, w) for the output gradient dy: dx in
+    x's dtype and shape, dw in w's. CUDA tensors launch the backward
+    kernel or raise; CPU tensors take `ref.rms_norm_bwd_ref`."""
+    global bwd_launches
+    if x.device.type == "cpu":
+        return rms_norm_bwd_ref(x, w, dy, eps)
+    rows = _check(x, w)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype} on {x.device}, "
+                         f"got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    dy = dy.contiguous()
+    d = x.shape[-1]
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    if x.numel() == 0:
+        return dx, dw.zero_()
+    lib = build.load("rmsnorm_bwd")
+    lib.rms_norm_bwd_blocks.argtypes = [ctypes.c_longlong]
+    lib.rms_norm_bwd_blocks.restype = ctypes.c_int
+    part = torch.empty((lib.rms_norm_bwd_blocks(rows), d), dtype=torch.float32,
+                       device=x.device)
+    fn = lib.rms_norm_bwd
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device)
+    err = fn(x.data_ptr(), _DTYPE_CODES[x.dtype], w.data_ptr(), _DTYPE_CODES[w.dtype],
+             dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), part.data_ptr(), rows, d,
+             eps, x.device.index, stream.cuda_stream)
+    build.check(lib, err, "rms_norm_bwd launch")
+    bwd_launches += 1
+    return dx, dw
+
+
+class RMSNorm(torch.autograd.Function):
+    """`rms_norm` with its backward: saves x and w and hands them to
+    `rms_norm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x, w, dy, ctx.eps)
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2, -1) + eps) * (1 + w)`` in float32, in x's
+    dtype; x (..., d) float32 or bfloat16, w (d,) float32 or bfloat16;
+    differentiable through `RMSNorm` where autograd records."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RMSNorm.apply(x, w, eps)
+    return _forward(x, w, eps)

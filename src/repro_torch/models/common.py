@@ -31,7 +31,7 @@ from repro_torch import tree
 from repro_torch.device import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
 
 
 @dataclass(frozen=True)
@@ -100,7 +100,7 @@ class ModelConfig:
     # numerics / runtime
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    remat: bool = False  # read by nothing here (no backward pass)
+    remat: bool = False  # activation checkpointing per group body in training
     use_pallas: bool = False  # read by nothing here (no kernel switch)
     scan_unroll: bool = False  # read by nothing here (no scan)
     attn_q_chunk: int = 512  # read by nothing here (the kernel tiles)

@@ -45,6 +45,11 @@ class Model:
         the JAX package. ``memory`` (B, Sm, d) feeds cross-attention."""
         return tfm.forward(self.cfg, params, tokens, memory)
 
+    def loss(self, params, batch):
+        """(loss, {"ce", "aux"}): `transformer.distill_loss`, the trainer's
+        loss, differentiable through the kernels' backward on the card."""
+        return tfm.distill_loss(self.cfg, params, batch)
+
     def prefill(self, params, tokens, cache_len, memory=None):
         return tfm.prefill(self.cfg, params, tokens, cache_len, memory)
 

@@ -26,9 +26,17 @@ per group.
 Parameters for each pattern position are stacked over groups, as in the
 JAX package (``groups/b{i}`` leaves of shape (num_groups, ...)). Where
 the JAX package scans over that axis, the port loops over it in Python,
-indexing each leaf; there is no backward pass, so there is no remat. The
-MoE blocks' load-balance losses are summed over the stack as the JAX
-package sums them: per group, then over the groups.
+indexing each leaf. With ``cfg.remat``, where autograd records, each
+group's body (and each encoder layer) runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, where
+the JAX package wraps its scan bodies in ``jax.checkpoint``: backward
+recomputes the body's forward, kernels included, instead of keeping its
+activations. The MoE blocks' load-balance losses are summed over the
+stack as the JAX package sums them: per group, then over the groups.
+
+`distill_loss` is the trainer's loss: float32 cross-entropy of the
+logits against the labels plus ``router_aux_weight`` times the aux
+loss.
 
 Caches: attention blocks keep K/V, cross-attention blocks the memory's
 K/V (``xk``, ``xv``: computed once at prefill, only read in decode, never
@@ -40,7 +48,10 @@ scans' final states to decode; `decode_step` writes every cache in place.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.models import attention as attn
@@ -224,6 +235,30 @@ def group_params(params: dict, g: int) -> dict:
     return tree.tree_map(lambda l: l[g], params["groups"])
 
 
+def _remat(cfg: ModelConfig, params, body, x):
+    """``body(x)``, under activation checkpointing where ``cfg.remat`` asks
+    for it and autograd records (grad mode on, and x or a leaf of
+    ``params`` requires grad); serving runs the body as it is."""
+    if cfg.remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(l.requires_grad for l in tree.leaves(params))):
+        return checkpoint(body, x, use_reentrant=False)
+    return body(x)
+
+
+def _group_body(cfg: ModelConfig, shared, gp: dict, x, *, positions, memory):
+    """One group: the shared attention block (where the config has one),
+    then the pattern's blocks. Returns (x, the blocks' aux losses
+    summed)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if shared is not None:
+        x, _ = _shared_attn_apply(cfg, shared, x, positions)
+    for i, kind in enumerate(cfg.pattern):
+        x, a, _ = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions,
+                              memory=memory)
+        aux = aux + a
+    return x, aux
+
+
 def _stack_forward(cfg: ModelConfig, params: dict, x, positions, memory=None):
     """Decoder trunk (no embed/unembed). Returns (x, total_aux): each
     group's blocks' aux losses summed, then the groups' sums."""
@@ -231,13 +266,9 @@ def _stack_forward(cfg: ModelConfig, params: dict, x, positions, memory=None):
     shared = params.get("shared_attn")
     for g in range(cfg.num_groups):
         gp = group_params(params, g)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if shared is not None:
-            x, _ = _shared_attn_apply(cfg, shared, x, positions)
-        for i, kind in enumerate(cfg.pattern):
-            x, a, _ = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions,
-                                  memory=memory)
-            aux = aux + a
+        body = functools.partial(_group_body, cfg, shared, gp, positions=positions,
+                                 memory=memory)
+        x, aux = _remat(cfg, gp if shared is None else (gp, shared), body, x)
         auxs.append(aux)
     return x, torch.stack(auxs).sum()
 
@@ -256,7 +287,8 @@ def encode(cfg: ModelConfig, params: dict, frames):
     x = frames.to(cfg.cdtype)
     for layer in range(cfg.encoder_layers):
         p = group_params(enc, layer)["b0"]
-        x, _, _ = block_apply(cfg, "attn_nc", p, x, positions=positions)
+        body = functools.partial(block_apply, cfg, "attn_nc", p, positions=positions)
+        x = _remat(cfg, p, lambda h, body=body: body(h)[0], x)
     return apply_norm(cfg, x, enc["final_norm"])
 
 
@@ -281,6 +313,21 @@ def forward(cfg: ModelConfig, params: dict, tokens, memory=None):
     x, aux = _stack_forward(cfg, params, x, positions, memory)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed_apply(cfg, params["embed"], x), aux
+
+
+def distill_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """Token-level knowledge-distillation loss (the JAX package's
+    `distill_loss`): cross-entropy of the student's float32 logits
+    against the teacher's hard labels, plus ``router_aux_weight`` times
+    the MoE load-balance aux loss. batch: {tokens, labels[, memory]}.
+    Returns (loss, {"ce": ce, "aux": aux})."""
+    logits, aux = forward(cfg, params, batch["tokens"], batch.get("memory"))
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
+    ce = (lse - lab).mean()
+    loss = ce + cfg.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,19 @@
 """The port stands alone and never hides the device.
 
-* `src/repro_torch`, `chip_smoke.py`, `examples/quickstart_torch.py` and
-  `examples/multi_client_torch.py` import neither ``jax`` nor the JAX
-  package ``repro`` (an AST scan), and every module of the port and both
-  examples import in a process where ``jax`` and ``repro`` cannot be
-  imported.
+* `src/repro_torch`, `chip_smoke.py`, `examples/quickstart_torch.py`,
+  `examples/multi_client_torch.py` and `examples/llm_distill_torch.py`
+  import neither ``jax`` nor the JAX package ``repro`` (an AST scan), and
+  every module of the port and the three examples import in a process
+  where ``jax`` and ``repro`` cannot be imported.
 * On a host without CUDA, an entry point asked for the card raises (the
   serving pool's ``device_backend="torch"`` too), and `chip_smoke.py`
   exits non-zero without printing a result, also from a directory that
   holds nothing else of the repo.
 * `examples/quickstart_torch.py --device cpu` runs and streams fewer
   bytes than full-model updates would; `examples/multi_client_torch.py
-  --device cpu` serves two clients at small frames.
+  --device cpu` serves two clients at small frames;
+  `examples/llm_distill_torch.py --device cpu` trains a smoke LLM, and
+  the trainer's CLI without ``--device`` raises on a host without a card.
 """
 import ast
 import os
@@ -32,11 +34,12 @@ PORT = ROOT / "src" / "repro_torch"
 
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 MULTI_CLIENT = ROOT / "examples" / "multi_client_torch.py"
+LLM_DISTILL = ROOT / "examples" / "llm_distill_torch.py"
 
 
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", QUICKSTART,
-                                         MULTI_CLIENT]
+                                         MULTI_CLIENT, LLM_DISTILL]
 
 
 def _imported_modules(path: Path):
@@ -66,7 +69,7 @@ def test_every_module_imports_without_jax():
     assert {"repro_torch.core.batched", "repro_torch.core.timing",
             "repro_torch.serving.engine",
             "repro_torch.sim.multiclient"} <= set(names)
-    examples = [str(QUICKSTART), str(MULTI_CLIENT)]
+    examples = [str(QUICKSTART), str(MULTI_CLIENT), str(LLM_DISTILL)]
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -108,6 +111,32 @@ def test_llm_entry_points_raise_without_a_card():
         serve.main(["--arch", "gemma2-9b", "--tokens", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build(cfg).init(torch.Generator())
+
+
+def test_trainer_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the test is for hosts without one")
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--steps", "1"])
+    r = subprocess.run([sys.executable, str(LLM_DISTILL), "--steps", "1"],
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+def test_llm_distill_example_runs_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, str(LLM_DISTILL), "--device", "cpu", "--steps",
+                        "21"], env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.strip().splitlines()
+    assert [l.split()[1] for l in lines[:-1]] == ["0", "20"]
+    m = re.search(r"done: final loss ([\d.]+), total downlink ([\d.]+) KB, 21 steps",
+                  lines[-1])
+    assert m and float(m.group(2)) > 0, lines[-1]
 
 
 def test_scheme_entry_points_raise_without_a_card():

@@ -35,6 +35,17 @@ of three eager runs. Also K1's launch count under replay (the counter and
 a profiler trace of one replay), the auto race's record, no aliasing
 between groups replayed through one graph, and `cache_clear` returning
 the graphs' memory.
+
+The backward kernels (K4-bwd, K3-bwd) against their plain versions on
+the same inputs (K4-bwd on every option the forward takes, q, k, v as
+strided views of one projection; float32 within 1e-4 relative + 2e-5 of
+the largest |value|, bfloat16 one bf16 ulp + 1e-4 of it), each run twice
+bit for bit (no atomics); K4's row log-sum-exp against the plain one and
+the forward's output unchanged by writing it; K3 and K4 outputs carrying
+a ``grad_fn`` with gradients reaching every input (F11); a float16 input
+refused; Gemma 2B's smoke model's loss and gradients under remat on the
+card against the CPU (1e-4 relative norm) with the exact launch counts;
+`FlatMaskedAdam` in place bit for bit against the tree step.
 """
 import time
 
@@ -913,3 +924,226 @@ def test_cross_attention_block_on_the_card(dev, arch, kind):
         assert torch.isfinite(a).all()
         rel = float((a - b).norm() / b.norm())
         assert rel < 1e-5, (a.shape, rel)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels (K4-bwd, K3-bwd) and the training path on the card
+# ---------------------------------------------------------------------------
+
+
+def _close_bf16_or_f32(got, want):
+    """float32: within 1e-4 relative and 2e-5 of the largest |value| (the
+    kernel and the plain version sum in other orders; dq and dk cancel);
+    bfloat16: one bf16 ulp plus 1e-4 of the largest |value|."""
+    scale = float(want.float().abs().max())
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-5 * scale)
+    else:
+        assert _within_bf16_ulp(got, want, atol=1e-4 * scale)
+
+
+# every option the forward takes: causal or not, window, softcap, G 1/2/8,
+# Sq != Skv, hd 64/112/128/256, bf16 and float32
+BWD_CASES = [  # B, Sq, Skv, KV, G, hd, causal, window, softcap, dtype
+    (2, 256, 256, 1, 8, 256, True, 0, 0.0, torch.bfloat16),    # Gemma 2B's heads
+    (1, 300, 300, 2, 2, 256, True, 0, 50.0, torch.bfloat16),   # softcap, ragged S
+    (1, 300, 300, 2, 2, 128, True, 64, 30.0, torch.bfloat16),  # window + softcap
+    (2, 200, 200, 4, 1, 64, False, 0, 0.0, torch.bfloat16),    # non-causal, G = 1
+    (1, 100, 333, 2, 2, 112, False, 0, 0.0, torch.bfloat16),   # Sq != Skv, hd 112
+    (1, 333, 100, 1, 8, 128, True, 0, 0.0, torch.bfloat16),    # Sq > Skv, causal
+    (1, 96, 96, 2, 2, 256, True, 20, 50.0, torch.float32),     # a fully masked first tile
+    (1, 257, 257, 1, 8, 112, True, 0, 0.0, torch.float32),
+    (2, 130, 70, 2, 2, 64, False, 0, 20.0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,KV,G,hd,causal,window,softcap,dtype", BWD_CASES)
+def test_flash_attention_bwd_kernel(dev, B, Sq, Skv, KV, G, hd, causal, window, softcap,
+                                    dtype):
+    """dq, dk, dv from the backward kernel against the plain backward on the
+    same q, k, v, output, log-sum-exp and dO; q, k and v are strided views
+    of one projection, as in the model; two runs equal bit for bit."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    qkv = torch.randn(B, max(Sq, Skv), KV, G + 2, hd, generator=g, device=dev).to(dtype)
+    q, k, v = qkv[:, :Sq, :, :G], qkv[:, :Skv, :, G], qkv[:, :Skv, :, G + 1]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = attn_ops._forward(q, k, v, causal, window, softcap, want_lse=True)
+    do = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    n0 = attn_ops.bwd_launches
+    got = attn_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = attn_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert attn_ops.bwd_launches == n0 + 2
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b, c, x in zip(got, again, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == dtype
+        assert torch.equal(a, b)
+        assert torch.isfinite(a.float()).all()
+        _close_bf16_or_f32(a, c)
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,causal,window,softcap", [
+    (2, 300, 2, 2, 128, True, 64, 30.0),
+    (2, 2048, 1, 8, 256, True, 0, 0.0),    # the Gemma 2B trainer's
+    (1, 300, 2, 2, 64, False, 0, 20.0),
+    (1, 257, 4, 1, 112, True, 32, 0.0),
+])
+def test_flash_attention_lse_matches_the_plain_version(dev, B, S, KV, G, hd, causal, window,
+                                                       softcap):
+    """The forward's row log-sum-exp against the plain version's, for each
+    head-dim instantiation of both routes; the output is the same with and
+    without the log-sum-exp store."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, S, KV, G, hd, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+        out, lse = attn_ops._forward(q, k, v, causal, window, softcap, want_lse=True)
+        plain = attn_ops._forward(q, k, v, causal, window, softcap, want_lse=False)[0]
+        _, want = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                      return_lse=True)
+        assert torch.equal(out, plain)  # the LSE store leaves the output alone
+        torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,dtype,wdtype", [
+    ((4096, 2048), torch.bfloat16, torch.bfloat16),  # the Gemma 2B trainer's norms
+    ((3, 7, 3584), torch.float32, torch.float32),
+    ((300, 1001), torch.bfloat16, torch.float32),    # ragged d
+    ((2, 16384), torch.float32, torch.bfloat16),     # d past 48 KB of shared memory
+])
+def test_rmsnorm_bwd_kernel(dev, shape, dtype, wdtype):
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.rmsnorm.ref import rms_norm_bwd_ref
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+    w = (torch.randn(shape[-1], generator=g, device=dev) * 0.1).to(wdtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    n0 = norm_ops.bwd_launches
+    dx, dw = norm_ops.rms_norm_bwd(x, w, dy)
+    dx2, dw2 = norm_ops.rms_norm_bwd(x, w, dy)
+    assert norm_ops.bwd_launches == n0 + 2
+    want_dx, want_dw = rms_norm_bwd_ref(x, w, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dx.dtype == dtype and dw.dtype == wdtype
+    _close_bf16_or_f32(dx, want_dx)
+    _close_bf16_or_f32(dw, want_dw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_outputs_carry_a_grad_fn_and_gradients_reach_every_input(dev, dtype):
+    """K3 and K4 on CUDA tensors that require grad: the outputs have a
+    ``grad_fn``, backward launches the backward kernels (their counters),
+    and every input gets its gradient from them."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(2, 64, 256, generator=g, device=dev).to(dtype).requires_grad_()
+    w = (0.1 * torch.randn(256, generator=g, device=dev)).to(dtype).requires_grad_()
+    wq = (torch.randn(256, 2, 2, 64, generator=g, device=dev) / 16).to(dtype).requires_grad_()
+    wk = (torch.randn(256, 2, 64, generator=g, device=dev) / 16).to(dtype).requires_grad_()
+    wv = (torch.randn(256, 2, 64, generator=g, device=dev) / 16).to(dtype).requires_grad_()
+    n = (norm_ops.launches, norm_ops.bwd_launches, attn_ops.launches, attn_ops.bwd_launches)
+    h = norm_ops.rms_norm(x, w)
+    o = attn_ops.flash_attention(torch.einsum("bsd,dkgh->bskgh", h, wq),
+                                 torch.einsum("bsd,dkh->bskh", h, wk),
+                                 torch.einsum("bsd,dkh->bskh", h, wv), softcap=50.0)
+    assert h.grad_fn is not None and o.grad_fn is not None
+    o.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (norm_ops.launches, norm_ops.bwd_launches, attn_ops.launches,
+            attn_ops.bwd_launches) == (n[0] + 1, n[1] + 1, n[2] + 1, n[3] + 1)
+    for t in (x, w, wq, wk, wv):
+        assert t.grad is not None and torch.isfinite(t.grad.float()).all()
+        assert bool((t.grad != 0).any())
+
+
+def test_kernel_backward_refuses_what_it_does_not_take(dev):
+    """No CUDA route falls back: a float16 input that requires grad raises in
+    the forward, before any graph is built."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    q = torch.randn(1, 16, 1, 1, 64, device=dev, dtype=torch.float16, requires_grad=True)
+    k = torch.randn(1, 16, 1, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        attn_ops.flash_attention(q, k, k)
+
+
+def test_smoke_llm_gradients_on_the_card_match_the_cpu(dev):
+    """Gemma 2B's smoke config (MQA, G = 4, hd 32 widened to 64 for the
+    kernels) with ``remat``: the loss and every leaf's gradient on the card
+    (K3, K4 and their backward kernels, float32 routes) against the CPU
+    (their plain versions), within 1e-4 in relative norm; K3/K4 launch
+    counts with the recomputation. The attention projections are drawn at
+    fan-in d_model: at the init's fan-in (G for ``wq``, KV for ``wk`` and
+    ``wv``) the softmax is nearly a hard max, and the embedding's gradient
+    parted by 2.0e-4 in relative norm between the two devices' float32
+    sums (the first card run of this test)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.models.registry import build
+
+    cfg = get_smoke("gemma-2b", head_dim=64, remat=True)
+    params = build(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    attn = params["groups"]["b0"]["attn"]
+    g = cfg.num_heads // cfg.num_kv_heads
+    attn["wq"].mul_((g / cfg.d_model) ** 0.5)
+    for key in ("wk", "wv"):
+        attn[key].mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
+    gen = np.random.default_rng(0)
+    toks = gen.integers(0, cfg.vocab_size, (2, 33))
+    grads = {}
+    for d in ("cpu", dev):
+        p = tree.tree_map(lambda l: l.detach().to(d).requires_grad_(), params)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(d),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(d)}
+        attn_ops.reset_launches()
+        n0, nb0 = norm_ops.launches, norm_ops.bwd_launches
+        loss, _ = build(cfg).loss(p, batch)
+        loss.backward()
+        grads[str(d)] = (float(loss.detach()), [l.grad.cpu() for l in tree.leaves(p)])
+        if d != "cpu":
+            L = cfg.num_layers
+            assert (norm_ops.launches - n0, norm_ops.bwd_launches - nb0) == (4 * L + 1,
+                                                                             2 * L + 1)
+            assert (attn_ops.launches, attn_ops.bwd_launches) == (2 * L, L)
+    (lc, gc), (lg, gg) = grads["cpu"], grads[str(dev)]
+    assert abs(lc - lg) <= 1e-5 * abs(lc)
+    rel = [float((a - b).norm()) / (float(a.norm()) + 1e-30) for a, b in zip(gc, gg)]
+    assert max(rel) <= 1e-4, rel
+
+
+def test_flat_adam_in_place_equals_the_tree_step_on_the_card(dev):
+    """`FlatMaskedAdam.step` (K1 writing p, m, v and u in place) against
+    `masked_adam_update` on the same gradients: bit for bit, bf16 params."""
+    from repro_torch.core.masked_adam import FlatMaskedAdam
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    params = {"a": torch.randn(300, 7, generator=g, device=dev).to(torch.bfloat16),
+              "b": {"c": torch.randn(1001, generator=g, device=dev).to(torch.bfloat16)}}
+    mask = tree.tree_map(lambda l: torch.rand(l.shape, generator=g, device=dev) < 0.3,
+                         params)
+    ref_p, ref_s = tree.tree_map(torch.clone, params), masked_adam.init_state(params)
+    st = FlatMaskedAdam(params)
+    st.set_mask(mask)
+    for _ in range(3):
+        grads = tree.tree_map(lambda l: torch.randn(l.shape, generator=g, device=dev)
+                              .to(l.dtype), params)
+        with torch.no_grad():
+            for dst, src in zip(tree.leaves(st.grads), tree.leaves(grads)):
+                dst.copy_(src)
+        st.step(lr=1e-2)
+        ref_p, ref_s, u = masked_adam.masked_adam_update(ref_p, grads, ref_s, mask, lr=1e-2)
+        for a, b in zip(tree.leaves(st.params) + tree.leaves(st.u_tree),
+                        tree.leaves(ref_p) + tree.leaves(u)):
+            assert torch.equal(a.detach(), b)
