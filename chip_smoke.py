@@ -368,13 +368,14 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def sass_counts(kernel: str = "flash_fwd_wgmma_kernel") -> dict:
+def sass_counts(kernel: str = "flash_fwd_wgmma_kernel",
+                library: str = "flash_attention") -> dict:
     """wgmma (HGMMA), TMA load (UTMALDG) and TMA store (UTMASTG)
     instructions in the SASS of ``kernel``'s instantiations, from
-    ``cuobjdump --dump-sass`` of the built flash-attention library."""
+    ``cuobjdump --dump-sass`` of the built library of ``csrc/<library>.cu``."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
-    sass = subprocess.run([tool, "--dump-sass", str(build.lib_path("flash_attention"))],
+    sass = subprocess.run([tool, "--dump-sass", str(build.lib_path(library))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     counts = {"functions": 0, "HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
     inside = False
@@ -2128,6 +2129,8 @@ TRAIN_GAMMA, TRAIN_LR, TRAIN_CLIP, TRAIN_STREAM_VOCAB = 0.05, 1e-3, 1.0, 32_768
 # (bf16, float32, the log-sum-exp's and the backward's temporaries at
 # 4,096 x 256,000) and activations under remat
 TRAIN_PEAK_PREDICTED = 62e9
+# K4-bwd's bf16 route: the dQ pass and the dK/dV pass (then the G reduce)
+BWD_WGMMA_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
 # K4-bwd on every option the forward takes, against its plain version:
 # (B, Sq, Skv, KV, G, hd, causal, window, softcap, dtype)
 K4_BWD_GRID = [
@@ -2149,15 +2152,17 @@ def train_expected_launches(cfg) -> dict:
     recomputes its group (remat); K3-bwd and K4-bwd once per forward norm
     and attention; the final norm once forward (outside the groups) and
     once backward; K1 once per param dtype (one: every leaf is the
-    config's param dtype). For Gemma 2B (18 layers): K3 73, K3-bwd 37, K4
-    36, K4-bwd 18, K1 1."""
+    config's param dtype). Every K4-bwd launch takes the bf16 wgmma route.
+    For Gemma 2B (18 layers): K3 73, K3-bwd 37, K4 36, K4-bwd 18 (all
+    bf16_wgmma), K1 1."""
     check(all(k in ("attn", "attn_local") for k in cfg.pattern),
           "train_expected_launches counts dense attention stacks")
     norms = (2 + 2 * cfg.post_norm) * cfg.num_layers
     rec = 2 if cfg.remat else 1
     return {"rms_norm": rec * norms + 1, "rms_norm_bwd": norms + 1,
             "flash_attention": rec * cfg.num_layers,
-            "flash_attention_bwd": cfg.num_layers, "masked_adam_3d": 1,
+            "flash_attention_bwd": cfg.num_layers,
+            "flash_attention_bwd_bf16_wgmma": cfg.num_layers, "masked_adam_3d": 1,
             "topk_threshold_bits": 0}
 
 
@@ -2165,6 +2170,7 @@ def train_counts() -> dict:
     return {"rms_norm": norm_ops.launches, "rms_norm_bwd": norm_ops.bwd_launches,
             "flash_attention": attn_ops.launches,
             "flash_attention_bwd": attn_ops.bwd_launches,
+            "flash_attention_bwd_bf16_wgmma": attn_ops.bwd_launches_by_route["bf16_wgmma"],
             "masked_adam_3d": adam_ops.launches, "topk_threshold_bits": topk_ops.launches}
 
 
@@ -2345,7 +2351,9 @@ def k4_bwd_phase(dev, captured, bw, bf16_flops) -> dict:
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o, do, lse, q, k, v))
     bound_ms = 1e3 * max(flops / bf16_flops, nbytes / bw)
     bound_by = "operations" if flops / bf16_flops >= nbytes / bw else "bytes"
-    print(f"K4-bwd flash_attention_bwd {tuple(q.shape)} bf16 causal: kernel {ms:.3f} ms on the "
+    route = attn_ops.BWD_ROUTES[q.dtype][0]
+    print(f"K4-bwd flash_attention_bwd {tuple(q.shape)} bf16 causal, route {route}: kernel "
+          f"{ms:.3f} ms on the "
           f"device ({flops / ms / 1e9:.1f} TFLOP/s of the 5 products), plain {plain_ms:.3f} ms, "
           f"autograd through SDPA {library_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
           f"({flops:.4e} FLOPs, {nbytes / 1e6:.1f} MB; {bound_ms / ms:.1%} of it)")
@@ -2356,7 +2364,7 @@ def k4_bwd_phase(dev, captured, bw, bf16_flops) -> dict:
     fwd = dict(err=max(fwd_err, grid_fwd_err), normal_err=fwd_err, grid_err=grid_fwd_err,
                against_float64=f64, lse_err=lse_err)
     return dict(err=err, fwd=fwd, checks=checks, grid_err=grid_err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, route=route,
                 tflops=flops / ms / 1e9, shape=list(q.shape))
 
 
@@ -2382,6 +2390,9 @@ def k3_bwd_phase(dev, captured, bw) -> dict:
     print(f"K3-bwd within 2x the bf16 plain backward's error from float64 on the run's "
           f"layer-0 norm input {tuple(x2.shape)} ({json.dumps(checks['run'])}) and on N(0, 1) "
           f"inputs ({json.dumps(checks['normal'])})")
+    variant = norm_ops.bwd_variant(x2, w, dy2)
+    check(variant == "warp_per_row", f"K3-bwd at the training shape takes warp_per_row, "
+                                     f"not {variant}")
     ms = device_ms(lambda: norm_ops.rms_norm_bwd(x2, w, dy2), n=20)
     plain_ms = device_ms(lambda: norm_ref.rms_norm_bwd_ref(x2, w, dy2), n=5)
     xl = x2.detach().clone().requires_grad_()
@@ -2391,12 +2402,13 @@ def k3_bwd_phase(dev, captured, bw) -> dict:
                            n=20)
     nbytes = 3 * x2.numel() * x2.element_size() + 2 * w.numel() * w.element_size()
     bound_ms = 1e3 * nbytes / bw
-    print(f"K3-bwd rms_norm_bwd {tuple(x2.shape)} bf16: kernel {ms:.4f} ms on the device, "
+    print(f"K3-bwd rms_norm_bwd {tuple(x2.shape)} bf16, variant {variant}: kernel {ms:.4f} ms "
+          f"on the device, "
           f"plain {plain_ms:.4f} ms, autograd through F.rms_norm {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB; {bound_ms / ms:.1%} of it)")
     err = max(r["kernel_vs_plain"] for r in checks["normal"].values())
     return dict(err=err, checks=checks, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by="bytes", shape=list(x2.shape))
+                bound_ms=bound_ms, bound_by="bytes", shape=list(x2.shape), variant=variant)
 
 
 def train_path(dev, bw, bf16_flops) -> dict:
@@ -2551,6 +2563,11 @@ def main() -> None:
           f"UTMASTG {sass['UTMASTG']}")
     check(sass["functions"] == 3 and sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
           f"the bf16 K4 kernel runs on wgmma and TMA: {sass}")
+    bwd_sass = {k: sass_counts(k, "flash_attention_bwd") for k in BWD_WGMMA_KERNELS}
+    print(f"K4-bwd bf16 kernels' SASS (3 instantiations each): {json.dumps(bwd_sass)}")
+    check(all(c["functions"] == 3 and c["HGMMA"] > 0 and c["UTMALDG"] > 0
+              for c in bwd_sass.values()),
+          f"the bf16 K4-bwd kernels run on wgmma and TMA: {bwd_sass}")
 
     # 2-3. kernels against their plain versions
     k1 = k1_phase(dev, bw, flops)
@@ -2778,7 +2795,9 @@ def main() -> None:
              library_call="torch.autograd.grad through scaled_dot_product_attention("
                           "is_causal=True, enable_gqa=True)",
              shape=k4b["shape"], tflops=k4b["tflops"], against_float64=k4b["checks"],
-             option_grid_max_abs_err=k4b["grid_err"]),
+             option_grid_max_abs_err=k4b["grid_err"], bf16_route=k4b["route"],
+             launches_bf16_wgmma=train_launches["flash_attention_bwd_bf16_wgmma"],
+             sass=bwd_sass),
         dict(name="rms_norm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:25",
              replaces_what="the gradient of rms_norm_2d, which the JAX package takes "
@@ -2790,7 +2809,7 @@ def main() -> None:
              bound_ms=k3b["bound_ms"], bound_by=k3b["bound_by"],
              library_ms=k3b["library_ms"],
              library_call="torch.autograd.grad through torch.nn.functional.rms_norm",
-             shape=k3b["shape"], against_float64=k3b["checks"]),
+             shape=k3b["shape"], against_float64=k3b["checks"], variant=k3b["variant"]),
     ]
     print(f"AMS summary: eager iteration busy share {trace['busy_share']:.3f} "
           f"({trace['launches']} launches, wall {trace['wall_ms']:.2f} ms); race at "

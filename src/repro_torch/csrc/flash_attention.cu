@@ -101,10 +101,7 @@
 // wgmma, C7513; with the per-step S sums there are no registers left for
 // it at hd 256). Not done yet: a persistent grid, clusters with TMA
 // multicast of K and V for the q heads of a KV group, fp8.
-#include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper_tma_wgmma.cuh"
 
 namespace {
 
@@ -144,153 +141,11 @@ struct TcLayout {  // shared memory, in bytes from a 1024-aligned base
   static constexpr size_t kAlloc = kBytes + 1024;   // room to align the base
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Returns once the barrier's phase of parity `parity` has completed. A
-// wait that never ends (a fault in the pipeline) traps after ~2^28 polls,
-// so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t polls = 0;
-  do {
-    if (++polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2,
-                                            int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src,
-                                             int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5, %6}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Waits until at most N of this warpgroup's commit groups are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous instructions that own them.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D32                                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
-  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_OUT32(d)                                                             \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),       \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),          \
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),          \
-      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),          \
-      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-// d (64x64, float32) = A B (+ d if accumulate): A 64x16 and B 64x16 (N x K)
-// bf16 from shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : WG_OUT32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64x64, float32) = A B (+ d if accumulate): A 64x16 bf16 from
-// registers, B 16x64 (K x N) bf16 from shared memory, MN-major (the
-// transpose bit).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : WG_OUT32(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-}
-
 // 2^x on the special-function unit (relative error ~2^-22)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // Two warpgroups of 64 q rows each; see the note at the top. The wgmma
@@ -567,51 +422,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, so the
-// library needs no -lcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                &res) == cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 tensor map of `rank` dims (innermost first; strides in elements
-// for dims 1..rank-1), 128-byte swizzle, zeros out of bounds.
-cudaError_t encode_map(CUtensorMap* map, const void* ptr, int rank,
-                       const long long* dims, const long long* strides,
-                       const uint32_t* box) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorSymbolNotFound;
-  cuuint64_t gdim[5], gstride[4];
-  cuuint32_t ebox[5], estride[5];
-  for (int i = 0; i < rank; ++i) {
-    gdim[i] = static_cast<cuuint64_t>(dims[i]);
-    ebox[i] = box[i];
-    estride[i] = 1;
-  }
-  for (int i = 0; i < rank - 1; ++i)
-    gstride[i] = static_cast<cuuint64_t>(strides[i]) * sizeof(__nv_bfloat16);
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(ptr), gdim, gstride, ebox, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int HD>

@@ -7,11 +7,12 @@ of the checkout (listed in ``.gitignore``), for ``sm_90a`` (Hopper):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
          -shared -Xcompiler -fPIC -o <lib> <source>
 
-The hash covers the source and the flags, so an edited kernel rebuilds and
-an unchanged one loads from disk. `build_all` starts one ``nvcc`` per
-source at once and waits for all of them. No fast-math: the kernels round
-like their plain PyTorch versions, and ``-fmad=false`` keeps the compiler
-from contracting a multiply and an add into one rounding.
+The hash covers the source, the ``csrc`` headers it includes and the
+flags, so an edited kernel or header rebuilds and an unchanged one loads
+from disk. `build_all` starts one ``nvcc`` per source at once and waits
+for all of them. No fast-math: the kernels round like their plain PyTorch
+versions, and ``-fmad=false`` keeps the compiler from contracting a
+multiply and an add into one rounding.
 
 Nothing here runs when a module is imported; the CPU tests import every
 module on a host without ``nvcc``.
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,8 +47,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``: its name hashes the source, the
+    ``csrc`` headers it includes (``#include "x.cuh"``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = [(CSRC / h.decode()).read_bytes()
+               for h in re.findall(rb'#include "([^"]+)"', src)]
+    digest = hashlib.sha256(b"".join([src, *headers])
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -23,10 +23,12 @@ forward runs the route above and also keeps the rows' log-sum-exp (the
 kernels write it when given a buffer; the plain version computes it),
 and its backward computes dq, dk and dv from q, k, v, the output and
 that log-sum-exp. On CUDA tensors the backward launches the backward
-kernel (both dtypes, CUDA cores; a dtype or shape it does not take
-raises), on CPU tensors it runs the plain version,
-`ref.flash_attention_bwd_ref`. There is no other route: a CUDA input
-that requires grad gets its gradient from the kernel or raises.
+kernels, routed by dtype as the forward is: bfloat16 on the tensor cores
+(``wgmma`` and TMA, P and dS split into two bf16 terms), float32 on the
+CUDA cores; a dtype or shape they do not take raises. On CPU tensors it
+runs the plain version, `ref.flash_attention_bwd_ref`. There is no other
+route: a CUDA input that requires grad gets its gradient from the kernel
+or raises.
 
 ``launches`` counts forward kernel launches of both routes (plain-version
 calls do not count); ``launches_by_route`` counts them per route.
@@ -50,7 +52,7 @@ ROUTES = {torch.bfloat16: ("bf16_wgmma", "flash_attention_fwd_bf16"),
           torch.float32: ("f32_cuda_cores", "flash_attention_fwd_f32")}
 launches_by_route = {name: 0 for name, _ in ROUTES.values()}
 # dtype -> (backward route name, dtype code of the C entry point)
-BWD_ROUTES = {torch.bfloat16: ("bf16_cuda_cores", 1),
+BWD_ROUTES = {torch.bfloat16: ("bf16_wgmma", 1),
               torch.float32: ("f32_cuda_cores", 0)}
 bwd_launches_by_route = {name: 0 for name, _ in BWD_ROUTES.values()}
 

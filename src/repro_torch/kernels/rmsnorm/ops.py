@@ -18,7 +18,12 @@ its backward gives dx and dw through `rms_norm_bwd`: on CUDA tensors the
 backward kernel (one launch of its C entry point: a row pass that writes
 dx and per-block float32 dw partials, then a fixed-order column sum), or
 the wrapper raises; on CPU tensors the plain version,
-`ref.rms_norm_bwd_ref`. There is no other route.
+`ref.rms_norm_bwd_ref`. There is no other route. The row pass has two
+variants, picked from the shape and the alignment as the forward's are
+(`bwd_variant` names the one a call takes): a warp per row that holds the
+row of x and dy in registers (rows of whole, aligned 16-byte chunks, at
+most 2,048 bf16 or 1,024 float32 values), and a block per row for the
+rest.
 
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
 ones (plain-version calls do not count).
@@ -47,6 +52,9 @@ _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                  ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                  ctypes.c_void_p]
 VARIANTS = ("block_per_row", "split_row", "warp_per_row")
+BWD_VARIANTS = ("block_per_row", "warp_per_row")
+_BWD_PLAN_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> int:
@@ -81,6 +89,26 @@ def variant(x: torch.Tensor, w: torch.Tensor) -> str:
     if v < 0:
         raise RuntimeError(f"rms_norm_variant: cannot query {x.device}")
     return VARIANTS[v]
+
+
+def _bwd_plan(fn_name: str, x, dy, dx) -> int:
+    """The backward's C planner ``fn_name`` (its variant or its number of
+    dw partial rows) for these CUDA tensors."""
+    lib = build.load("rmsnorm_bwd")
+    fn = getattr(lib, fn_name)
+    fn.argtypes = _BWD_PLAN_ARGTYPES
+    fn.restype = ctypes.c_int
+    d = x.shape[-1]
+    return fn(x.data_ptr(), _DTYPE_CODES[x.dtype], dy.data_ptr(),
+              None if dx is None else dx.data_ptr(), x.numel() // max(d, 1), d,
+              x.device.index)
+
+
+def bwd_variant(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> str:
+    """The row-pass variant `rms_norm_bwd` takes for these CUDA tensors,
+    one of `BWD_VARIANTS` (its dx is a fresh buffer, so 16-byte aligned)."""
+    _check(x, w)
+    return BWD_VARIANTS[_bwd_plan("rms_norm_bwd_variant", x, dy.contiguous(), None)]
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor, eps: float):
@@ -123,11 +151,9 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     dw = torch.empty_like(w)
     if x.numel() == 0:
         return dx, dw.zero_()
+    part = torch.empty((_bwd_plan("rms_norm_bwd_blocks", x, dy, dx), d),
+                       dtype=torch.float32, device=x.device)
     lib = build.load("rmsnorm_bwd")
-    lib.rms_norm_bwd_blocks.argtypes = [ctypes.c_longlong]
-    lib.rms_norm_bwd_blocks.restype = ctypes.c_int
-    part = torch.empty((lib.rms_norm_bwd_blocks(rows), d), dtype=torch.float32,
-                       device=x.device)
     fn = lib.rms_norm_bwd
     fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int

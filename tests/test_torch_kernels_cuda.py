@@ -945,6 +945,7 @@ def _close_bf16_or_f32(got, want):
 # every option the forward takes: causal or not, window, softcap, G 1/2/8,
 # Sq != Skv, hd 64/112/128/256, bf16 and float32
 BWD_CASES = [  # B, Sq, Skv, KV, G, hd, causal, window, softcap, dtype
+    (2, 2048, 2048, 1, 8, 256, True, 0, 0.0, torch.bfloat16),  # the Gemma 2B trainer's
     (2, 256, 256, 1, 8, 256, True, 0, 0.0, torch.bfloat16),    # Gemma 2B's heads
     (1, 300, 300, 2, 2, 256, True, 0, 50.0, torch.bfloat16),   # softcap, ragged S
     (1, 300, 300, 2, 2, 128, True, 64, 30.0, torch.bfloat16),  # window + softcap
@@ -962,7 +963,8 @@ def test_flash_attention_bwd_kernel(dev, B, Sq, Skv, KV, G, hd, causal, window, 
                                     dtype):
     """dq, dk, dv from the backward kernel against the plain backward on the
     same q, k, v, output, log-sum-exp and dO; q, k and v are strided views
-    of one projection, as in the model; two runs equal bit for bit."""
+    of one projection, as in the model; two runs equal bit for bit. bf16
+    goes through the wgmma kernels, float32 through the CUDA-core ones."""
     from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
 
@@ -972,10 +974,13 @@ def test_flash_attention_bwd_kernel(dev, B, Sq, Skv, KV, G, hd, causal, window, 
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = attn_ops._forward(q, k, v, causal, window, softcap, want_lse=True)
     do = torch.randn(out.shape, generator=g, device=dev).to(dtype)
-    n0 = attn_ops.bwd_launches
+    route = attn_ops.BWD_ROUTES[dtype][0]
+    assert route == ("bf16_wgmma" if dtype == torch.bfloat16 else "f32_cuda_cores")
+    n0, r0 = attn_ops.bwd_launches, attn_ops.bwd_launches_by_route[route]
     got = attn_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     again = attn_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     assert attn_ops.bwd_launches == n0 + 2
+    assert attn_ops.bwd_launches_by_route[route] == r0 + 2
     want = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     for a, b, c, x in zip(got, again, want, (q, k, v)):
@@ -1012,13 +1017,17 @@ def test_flash_attention_lse_matches_the_plain_version(dev, B, S, KV, G, hd, cau
         torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape,dtype,wdtype", [
-    ((4096, 2048), torch.bfloat16, torch.bfloat16),  # the Gemma 2B trainer's norms
-    ((3, 7, 3584), torch.float32, torch.float32),
-    ((300, 1001), torch.bfloat16, torch.float32),    # ragged d
-    ((2, 16384), torch.float32, torch.bfloat16),     # d past 48 KB of shared memory
+@pytest.mark.parametrize("shape,dtype,wdtype,variant", [
+    ((4096, 2048), torch.bfloat16, torch.bfloat16, "warp_per_row"),  # the Gemma 2B trainer's
+    ((3000, 1024), torch.float32, torch.bfloat16, "warp_per_row"),   # the longest f32 row
+    ((5, 64), torch.bfloat16, torch.float32, "warp_per_row"),        # few rows, short ones
+    ((3, 7, 3584), torch.float32, torch.float32, "block_per_row"),   # past the registers
+    ((300, 1001), torch.bfloat16, torch.float32, "block_per_row"),   # ragged d
+    ((2, 16384), torch.float32, torch.bfloat16, "block_per_row"),    # past 48 KB of smem
 ])
-def test_rmsnorm_bwd_kernel(dev, shape, dtype, wdtype):
+def test_rmsnorm_bwd_kernel(dev, shape, dtype, wdtype, variant):
+    """Both row-pass variants of K3-bwd against the plain backward; two runs
+    equal bit for bit."""
     from repro_torch.kernels.rmsnorm import ops as norm_ops
     from repro_torch.kernels.rmsnorm.ref import rms_norm_bwd_ref
 
@@ -1026,6 +1035,7 @@ def test_rmsnorm_bwd_kernel(dev, shape, dtype, wdtype):
     x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
     w = (torch.randn(shape[-1], generator=g, device=dev) * 0.1).to(wdtype)
     dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    assert norm_ops.bwd_variant(x, w, dy) == variant
     n0 = norm_ops.bwd_launches
     dx, dw = norm_ops.rms_norm_bwd(x, w, dy)
     dx2, dw2 = norm_ops.rms_norm_bwd(x, w, dy)
