@@ -184,18 +184,27 @@ its own:
    the edge's copy of the init. Per step: the loss (finite), the kernel
    launches (exactly `train_expected_launches`: K3 73, K3-bwd 37, K4 36,
    K4-bwd 18, K1 1), the stages' times; at step 1 every leaf's gradient
-   finite and not all zero; the peak memory beside its prediction, the
-   step's MFU against `roofline.analytic`, the downlink per phase; the
-   edge's params equal the trained ones through fp16 where a mask
-   selected. Then K4-bwd and K3-bwd on the run's layer-0 tensors and on
-   N(0, 1) inputs, within 2x the bf16 plain backward's error from
-   float64, K4-bwd on an option grid against its plain backward, both
-   timed beside their bounds, plain versions and autograd through SDPA
-   and ``F.rms_norm``;
-14. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
+   finite and not all zero; the peak memory, the step's MFU against
+   `roofline.analytic`, the downlink per phase; the edge's params equal
+   the trained ones through fp16 where a mask selected. Then K4-bwd and
+   K3-bwd on the run's layer-0 tensors and on N(0, 1) inputs, within 2x
+   the bf16 plain backward's error from float64, K4-bwd on an option grid
+   against its plain backward, both timed beside their bounds, plain
+   versions and autograd through SDPA and ``F.rms_norm``;
+14. the dry run's predictions (`launch.dryrun.lower_pair` on the one-card
+   mesh, on the meta device: no launch, no device memory) at each of the
+   seven paths' exact shapes, the six serving paths' prefill and the
+   trainer's step: the predicted argument bytes must equal the card's
+   bytes of the params (and the trainer's flat optimizer state and mask)
+   exactly, and the predicted peak must be within 10% of the path's
+   measured peak above what was allocated when it began (the trainer's
+   with the init's copy and the two mask trees it holds beside the step);
+   the traced and analytic FLOPs printed beside them, a ``DRYRUN {...}``
+   JSON line, and the phase's seconds of host time;
+15. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
    and K4's on all six LLM paths and the trainer), error against its
    plain version, times and bound;
-15. the last line, ``{"ok": true, "device": {...}}``.
+16. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; it does so too without CUDA, and when ``src/`` is missing (the
@@ -243,7 +252,7 @@ from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
 from repro_torch.kernels.topk_mask import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.topk_mask import ref as topk_ref  # noqa: E402
-from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, make_local_mesh  # noqa: E402
 from repro_torch.launch.serve import (ENCDEC_BATCH, ENCDEC_DECODE,  # noqa: E402
                                       ENCDEC_PROMPT, HYBRID_BATCH, HYBRID_DECODE,
                                       HYBRID_PROMPT, MAIN_BATCH, MAIN_DECODE,
@@ -265,7 +274,9 @@ from repro_torch.models.layers import apply_norm, embed_apply  # noqa: E402
 from repro_torch.models.registry import build as build_model  # noqa: E402
 from repro_torch.models.seg.student import SegConfig, make_student, seg_param_count  # noqa: E402
 from repro_torch.models.seg.teacher import train_teacher  # noqa: E402
-from repro_torch.roofline.analysis import roofline_terms, serving_stage_report  # noqa: E402
+from repro_torch.launch.dryrun import lower_pair  # noqa: E402
+from repro_torch.roofline.analysis import (ALLOC_GRANULE, roofline_terms,  # noqa: E402
+                                           serving_stage_report)
 from repro_torch.roofline.analytic import ShapeSpec, analytic_cost  # noqa: E402
 from repro_torch.serving import ServingConfig, debug_snapshot  # noqa: E402
 from repro_torch.sim import runner  # noqa: E402
@@ -1385,6 +1396,7 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     K4 42 per prefill), all K4 launches on its bf16 route."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     cfg, params, prompt, memory = path_inputs(dev)
     torch.cuda.synchronize()
@@ -1452,7 +1464,12 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     check(launches["flash_attention_by_route"] == {"bf16_wgmma": n_attn,
                                                    "f32_cuda_cores": 0},
           f"{label}: K4 routes {launches['flash_attention_by_route']}")
-    return cfg, params, prompt, memory, r, cold, launches, peak
+    mem = dict(label=label, cfg=cfg, base=base, peak=peak,
+               params=sum(l.numel() * l.element_size() for l in tree.leaves(params)),
+               shape=dict(kind="prefill", seq_len=prompt_len, global_batch=batch,
+                          cache_len=prompt_len + n_decode,
+                          mem_len=None if memory is None else memory.shape[1]))
+    return cfg, params, prompt, memory, r, cold, launches, peak, mem
 
 
 def analytic_shares(cfg, r, batch: int, prompt_len: int, n_decode: int, label: str):
@@ -2056,15 +2073,15 @@ def served_path(dev, path_inputs, n_decode, label, hold_logits, layer_inputs):
     tensors computed from the run's data (a norm's weight cloned, since it
     outlives the params); the weights are dropped, and checked freed,
     before it returns."""
-    cfg, params, prompt, memory, r, cold, launches, peak = llm_path(
+    cfg, params, prompt, memory, r, cold, launches, peak, mem = llm_path(
         dev, path_inputs, n_decode, label)
     handoff = handoff_check(cfg, params, prompt, label, hold_logits, memory)
     inputs = layer_inputs(cfg, params, prompt, memory)
     held = torch.cuda.memory_allocated()
     del params, prompt, memory
     free_weights(f"after the {label} path", cfg, held)
-    return dict(cfg=cfg, run=r, cold=cold, launches=launches, peak=peak, handoff=handoff,
-                **inputs)
+    return dict(cfg=cfg, run=r, cold=cold, launches=launches, peak=peak, mem=mem,
+                handoff=handoff, **inputs)
 
 
 def encdec_phase(dev, bw, bf16_flops) -> dict:
@@ -2123,12 +2140,6 @@ def vlm_phase(dev, bw, bf16_flops) -> dict:
 TRAIN_ARCH, TRAIN_PARAMS = "gemma-2b", 2_506_172_416
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_PHASES = 2, 2048, 4, 2
 TRAIN_GAMMA, TRAIN_LR, TRAIN_CLIP, TRAIN_STREAM_VOCAB = 0.05, 1e-3, 1.0, 32_768
-# predicted before the first run: 15 bytes of optimizer state a coordinate
-# (p, m, g bf16; v, u float32; the mask) = 37.6 GB, the edge's copy of
-# the init 5.0 GB, the two phases' mask trees 5.0 GB, ~15 GB of logits
-# (bf16, float32, the log-sum-exp's and the backward's temporaries at
-# 4,096 x 256,000) and activations under remat
-TRAIN_PEAK_PREDICTED = 62e9
 # K4-bwd's bf16 route: the dQ pass and the dK/dV pass (then the G reduce)
 BWD_WGMMA_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
 # K4-bwd on every option the forward takes, against its plain version:
@@ -2143,6 +2154,17 @@ K4_BWD_GRID = [
     (1, 257, 257, 1, 8, 112, True, 0, 0.0, torch.float32),
     (2, 130, 70, 2, 2, 64, False, 0, 20.0, torch.float32),
 ]
+
+
+def tensor_bytes(leaves) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def alloc_bytes(leaves) -> int:
+    """Bytes the caching allocator holds for tensors allocated one by one:
+    each rounded up to its block (`roofline.analysis.ALLOC_GRANULE`)."""
+    g = ALLOC_GRANULE
+    return sum(-(-t.numel() * t.element_size() // g) * g for t in leaves)
 
 
 def train_expected_launches(cfg) -> dict:
@@ -2432,6 +2454,8 @@ def train_path(dev, bw, bf16_flops) -> dict:
     check(build_model(cfg).num_params() == TRAIN_PARAMS and cfg.remat,
           f"{cfg.name}: {TRAIN_PARAMS:,} parameters under remat")
     want = train_expected_launches(cfg)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
@@ -2481,6 +2505,9 @@ def train_path(dev, bw, bf16_flops) -> dict:
         attn_ops.flash_attention_bwd, norm_ops.rms_norm_bwd = real_attn_bwd, real_norm_bwd
     train_s = time.perf_counter() - t1
     peak = torch.cuda.max_memory_allocated()
+    # what the trainer holds beside the step: the edge's copy of the init
+    # and the two phases' mask trees
+    beside = alloc_bytes(tree.leaves(params) + tree.leaves(r.masks))
     check(all(math.isfinite(x) for x in r.losses), f"every loss finite: {r.losses}")
     check(grads_ok.get("finite") and grads_ok.get("nonzero"),
           f"step 1: every leaf's gradient finite and not all zero ({grads_ok})")
@@ -2499,7 +2526,14 @@ def train_path(dev, bw, bf16_flops) -> dict:
     check(same, "edge params after the deltas: the trained ones through fp16 where a mask "
                 "selected, the init elsewhere")
     edge_s = time.perf_counter() - t2
-    del edge
+    st = r.state
+    mem = dict(label="Train", cfg=cfg, base=base, peak=peak,
+               params=tensor_bytes(tree.leaves(st.params)),
+               opt_state=tensor_bytes(tree.leaves((st.grads, st.views(st.m), st.views(st.v),
+                                                   st.u_tree))) + st.count.element_size(),
+               mask=tensor_bytes(tree.leaves(st.mask)), beside=beside,
+               shape=dict(kind="train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    del edge, st
     downlink = [dict(selected=sum(int(m.sum()) for m in tree.leaves(mk)),
                      values_bytes=d.value_bytes, mask_gz_bytes=d.mask_bytes,
                      mask_raw_bytes=-(-d.n_total // 8), total_bytes=d.total_bytes)
@@ -2521,17 +2555,73 @@ def train_path(dev, bw, bf16_flops) -> dict:
           f"losses {[round(x, 4) for x in losses]}; step (forward+backward, clip, K1) "
           f"{[round(x, 1) for x in step_ms]} ms, median after the first {warm:.1f} ms; MFU "
           f"{mfu:.3f} ({cost['model_flops']:.4e} model FLOPs a step at "
-          f"{PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s); peak memory {peak:,} bytes (predicted "
-          f"{TRAIN_PEAK_PREDICTED:,.0f}); init {t_init:.1f} s, train() {train_s:.1f} s, "
-          f"edge apply and check {edge_s:.1f} s")
+          f"{PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s); peak memory {peak:,} bytes ({peak - base:,} "
+          f"above the path's start; the dry-run phase predicts it); init {t_init:.1f} s, "
+          f"train() {train_s:.1f} s, edge apply and check {edge_s:.1f} s")
     print(f"train downlink per phase: {json.dumps(downlink)}")
     print(f"train launches per step {counts[0]} (all {len(counts)} steps equal, as "
           f"derived from the config); step-1 gradients finite and non-zero on all "
           f"{grads_ok['leaves']} leaves")
     return dict(cfg=cfg, steps=steps, step_ms=step_ms, warm_step_ms=warm, mfu=mfu,
-                model_flops=cost["model_flops"], peak=peak, counts=counts, want=want,
+                model_flops=cost["model_flops"], peak=peak, mem=mem, counts=counts, want=want,
                 losses=losses, downlink=downlink, t_init=t_init, train_s=train_s,
                 edge_s=edge_s, captured=captured, seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# The dry run's predictions against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_PEAK_BOUND = 0.10  # relative, predicted against measured peak
+
+
+def dryrun_phase(mems: list) -> dict:
+    """`launch.dryrun.lower_pair` on the one-card mesh at each path's exact
+    shape (the serving paths' prefill at their batch, prompt length, cache
+    length and memory; the trainer's step at its batch and sequence with
+    bf16 first moments and its clip), on the meta device: no kernel
+    launch, no device memory. Predicted argument bytes must equal the
+    card's bytes of the params exactly (and of the flat optimizer's state
+    and mask for the trainer), and the predicted peak must be within
+    `DRYRUN_PEAK_BOUND` of the path's measured peak: its
+    ``max_memory_allocated`` less what was allocated when the path began.
+    The trainer's prediction adds the bytes it holds beside the step (the
+    edge's copy of the init and the two phases' mask trees)."""
+    t0 = time.perf_counter()
+    mesh = make_local_mesh()
+    rows = {}
+    for m in mems:
+        cfg, train_pair = m["cfg"], m["shape"]["kind"] == "train"
+        opts = frozenset({"m_bf16"}) if train_pair else frozenset()
+        f = lower_pair(cfg.name, m["shape"], mesh, cfg_override=cfg, opts=opts,
+                       clip=TRAIN_CLIP if train_pair else 0.0)
+        parts = f["device_arg_parts"]
+        predicted = f["device_peak_bytes"] + m.get("beside", 0)
+        measured = m["peak"] - m["base"]
+        card = {k: m[k] for k in ("params", "opt_state", "mask") if k in m}
+        rows[m["label"]] = dict(
+            arch=cfg.name, shape=m["shape"], predicted_args=parts, card_args=card,
+            predicted_temps=f["device_temp_bytes"], beside=m.get("beside", 0),
+            predicted_peak=predicted, measured_peak=measured,
+            peak_error=predicted / measured - 1, traced_flops=f["traced_flops"],
+            analytic_flops=f["flops"], trace_s=f["trace_s"], traced_ops=f["traced_ops"])
+        print(f"dry run {m['label']}: {cfg.name} {m['shape']}: args predicted "
+              f"{json.dumps(parts)}, on the card {json.dumps(card)}; temporaries "
+              f"{f['device_temp_bytes']:,}, beside the step {m.get('beside', 0):,}; peak "
+              f"predicted {predicted:,} bytes, measured {measured:,} ({m['peak']:,} less "
+              f"{m['base']:,} at the path's start): {100 * (predicted / measured - 1):+.2f}%; "
+              f"FLOPs traced {f['traced_flops']:.4e}, analytic {f['flops']:.4e}; traced in "
+              f"{f['trace_s']:.2f} s ({f['traced_ops']:,} ops)")
+        check(all(parts[k] == v for k, v in card.items()),
+              f"dry run {m['label']}: predicted argument bytes {parts} equal the card's {card}")
+        check(abs(predicted / measured - 1) <= DRYRUN_PEAK_BOUND,
+              f"dry run {m['label']}: predicted peak {predicted:,} within "
+              f"{DRYRUN_PEAK_BOUND:.0%} of the measured {measured:,}")
+    secs = time.perf_counter() - t0
+    print(f"dry-run phase: {len(mems)} pairs traced on the meta device in {secs:.1f} s of "
+          f"host time")
+    print("DRYRUN " + json.dumps(rows))
+    return dict(rows=rows, seconds=secs)
 
 
 T_START = time.perf_counter()
@@ -2600,7 +2690,7 @@ def main() -> None:
     # phase's graphs and their memory pools go first
     batched.cache_clear()
     torch.cuda.empty_cache()
-    cfg, params, prompt, _, llm, llm_cold, llm_launches, peak = llm_path(
+    cfg, params, prompt, _, llm, llm_cold, llm_launches, peak, llm_mem = llm_path(
         dev, main_path_inputs, MAIN_DECODE)
     held = torch.cuda.memory_allocated()
     norm_in, qkv_local, qkv_global = llm_layer_inputs(cfg, params, prompt)
@@ -2620,7 +2710,7 @@ def main() -> None:
     print(f"MoE path: device memory allocated {held:,} bytes with {cfg.name}'s weights, "
           f"{freed:,} after freeing them ({gemma_bytes:,} bytes of weights)")
     check(held - freed >= gemma_bytes, f"{cfg.name}'s weights freed before the MoE path")
-    mcfg, mparams, mprompt, _, moe, moe_cold, moe_launches, moe_peak = llm_path(
+    mcfg, mparams, mprompt, _, moe, moe_cold, moe_launches, moe_peak, moe_mem = llm_path(
         dev, moe_path_inputs, MOE_DECODE, "MoE")
     moe_norm_in, moe_qkv = moe_layer_inputs(mcfg, mparams, mprompt)
     del mparams, mprompt
@@ -2674,7 +2764,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_launches = {k: sum(c[k] for c in tr["counts"]) for k in tr["want"]}
 
-    # 14. kernels line
+    # 14. the dry run at each path's shape against what the path measured
+    dry = dryrun_phase([llm_mem, moe_mem, hyb["mem"], rec["mem"], enc["mem"], vlm["mem"],
+                        tr["mem"]])
+
+    # 15. kernels line
     kernels = [
         dict(name="masked_adam_3d", route="cuda",
              source="src/repro_torch/csrc/masked_adam.cu",
@@ -2869,8 +2963,9 @@ def main() -> None:
                                            f"{vlm['cfg'].name} ({vlm['cfg'].num_layers} "
                                            "layers)": vlm_shares}))
     print(f"Train summary: {tr['cfg'].name} step {tr['warm_step_ms']:.1f} ms (median after "
-          f"the first), MFU {tr['mfu']:.3f}, peak {tr['peak']:,} bytes (predicted "
-          f"{TRAIN_PEAK_PREDICTED:,.0f}); K4-bwd {k4b['ms']:.3f} ms (SDPA backward "
+          f"the first), MFU {tr['mfu']:.3f}, peak {tr['peak']:,} bytes (the dry run's "
+          f"prediction {dry['rows']['Train']['predicted_peak']:,} above the path's start, "
+          f"measured {dry['rows']['Train']['measured_peak']:,}); K4-bwd {k4b['ms']:.3f} ms (SDPA backward "
           f"{k4b['library_ms']:.3f}, bound {k4b['bound_ms']:.4f}), K3-bwd {k3b['ms']:.4f} ms "
           f"(F.rms_norm backward {k3b['library_ms']:.4f}, bound {k3b['bound_ms']:.4f}); the "
           f"phase took {tr['seconds']:.1f} s")

@@ -56,12 +56,18 @@ MLP, the configs of Moonlight-16B-A3B, Mixtral 8x22B, Llama-4 Maverick
 and Llama 3 405B; ``roofline/analytic.py``, ``roofline/analysis.py`` (its
 arithmetic) and ``launch/mesh.py`` (an H100's constants).
 
-Not ported yet: sharded execution on several cards (with the mesh
-builders), the LLM zoo's Mamba2, RWKV6, cross-attention and encoder
-modules with their configs, ``data/tokens.py``, ``checkpoint/``, the
-HLO readers of ``roofline/analysis.py`` and the dry-run and training
-launchers.
+Ported later: the Mamba2, RWKV6, cross-attention and encoder modules
+with their configs, ``data/tokens.py``, ``checkpoint/`` and the training
+launcher; and the dry run (``launch/dryrun.py``, ``launch/input_specs.py``,
+``launch/shardings.py``, the production meshes of ``launch/mesh.py``,
+``roofline/analysis.trace_facts``), which traces every step on the meta
+device.
+
+Not ported yet: sharded execution on several cards (the session mesh,
+``launch/host_mesh.py``) and the collective-bytes reader of
+``roofline/analysis.py``.
 
 Entry points take ``device="cuda"`` by default and raise when there is
-no card; the CPU runs only when the caller passes ``device="cpu"``.
+no card; the CPU runs only when the caller passes ``device="cpu"``. The
+dry run is the exception: it makes only meta tensors, on any host.
 """

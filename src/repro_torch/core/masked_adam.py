@@ -85,10 +85,10 @@ def masked_adam_update(params, grads, state: MaskedAdamState, mask, *,
 class FlatMaskedAdam:
     """Masked Adam for one model whose state is kept flat and updated in
     place: per param dtype, one ``(1, rows, 128)`` buffer each of params
-    ``p``, gradients ``g``, moments ``m`` (the param dtype, as
-    `init_state` gives) and ``v`` (float32), the mask (bool) and the
-    last update ``u`` (float32), laid out by `kernels.stacking` for a
-    stack of one (zero padding past the leaves).
+    ``p``, gradients ``g``, moments ``m`` (``m_dtype``, by default the
+    param dtype, as `init_state` gives) and ``v`` (float32), the mask
+    (bool) and the last update ``u`` (float32), laid out by
+    `kernels.stacking` for a stack of one (zero padding past the leaves).
 
     ``params`` is the model's tree of leaves that are views into ``p``
     and require grad; each leaf's ``.grad`` is a view into ``g``, so
@@ -100,14 +100,14 @@ class FlatMaskedAdam:
     Building it copies the given params once into ``p``; the caller drops
     its own tree afterwards."""
 
-    def __init__(self, params):
+    def __init__(self, params, m_dtype=None):
         one = tree.tree_map(lambda l: l.detach().unsqueeze(0), params)
         self.plan = stacking.stack_plan(one)
         with torch.no_grad():
             self.p = stacking.flatten_tree(one, self.plan)
         del one
         self.g = tuple(torch.zeros_like(b) for b in self.p)
-        self.m = tuple(torch.zeros_like(b) for b in self.p)
+        self.m = tuple(torch.zeros_like(b, dtype=m_dtype or b.dtype) for b in self.p)
         self.v = tuple(torch.zeros_like(b, dtype=torch.float32) for b in self.p)
         self.u = tuple(torch.zeros_like(b, dtype=torch.float32) for b in self.p)
         self.mask_buf = tuple(torch.zeros_like(b, dtype=torch.bool) for b in self.p)

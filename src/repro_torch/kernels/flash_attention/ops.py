@@ -30,6 +30,16 @@ runs the plain version, `ref.flash_attention_bwd_ref`. There is no other
 route: a CUDA input that requires grad gets its gradient from the kernel
 or raises.
 
+A meta tensor (``torch.device("meta")``: shapes and dtypes, no storage;
+the dry run, `launch/dryrun.py`) gets meta outputs of exactly the shapes
+and dtypes that the CUDA route allocates, and every workspace that route
+allocates in torch (the backward's float32 per-q-head dK/dV partials and
+its row terms D), after the CUDA route's checks; nothing is computed and
+nothing is launched. It adds the work the kernel would do to
+``meta_flops``: 4 hd FLOPs per live (q, k) pair per q head forward (QK^T
+and PV), 10 hd backward (the scores again, dP, dV, dQ and dK). Any other
+device raises.
+
 ``launches`` counts forward kernel launches of both routes (plain-version
 calls do not count); ``launches_by_route`` counts them per route.
 ``bwd_launches`` and ``bwd_launches_by_route`` do the same for the
@@ -39,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -55,6 +66,7 @@ launches_by_route = {name: 0 for name, _ in ROUTES.values()}
 BWD_ROUTES = {torch.bfloat16: ("bf16_wgmma", 1),
               torch.float32: ("f32_cuda_cores", 0)}
 bwd_launches_by_route = {name: 0 for name, _ in BWD_ROUTES.values()}
+meta_flops = 0  # FLOPs of the meta calls (the dry run's count)
 
 # the head dims the kernels take: instantiations of both routes, but the
 # bf16 route runs 112 as its 128 instantiation over 112-wide tensor maps
@@ -81,6 +93,21 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the mask keeps, over one head: query i
+    sees key j where j <= i (causal) and i - j < window (window)."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _count_meta(q, k, causal, window, per_pair: int) -> None:
+    global meta_flops
+    b, sq, kv, g, hd = q.shape
+    meta_flops += per_pair * hd * b * kv * g * live_pairs(sq, k.shape[1], causal, window)
+
+
 def _check(q, k, v):
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B,Sq,KV,G,hd) and k, v (B,Skv,KV,hd); "
@@ -99,7 +126,7 @@ def _check(q, k, v):
                             f"got {q.dtype}, {k.dtype}, {v.dtype}")
         vec = 16 // t.element_size()
         if (t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1])
-                or t.data_ptr() % 16):
+                or (t.device.type == "cuda" and t.data_ptr() % 16)):
             raise ValueError(f"{name} must have a contiguous last axis, "
                              f"16-byte aligned rows and base, got strides "
                              f"{t.stride()}")
@@ -124,14 +151,17 @@ def _forward(q, k, v, causal, window, softcap, want_lse):
                                        softcap=softcap, return_lse=True)
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap), None
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not {q.device}")
     _check(q, k, v)
     route, entry = ROUTES[q.dtype]
     b, sq, kv, g, hd = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, kv, g, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    if q.device.type == "meta":
+        _count_meta(q, k, causal, window, 4)
+        return out, lse
     lib = build.load("flash_attention")
     fn = getattr(lib, entry)
     fn.argtypes = _ARGTYPES
@@ -161,8 +191,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not {q.device}")
     _check(q, k, v)
     b, sq, kv, g, hd = q.shape
     skv = k.shape[1]
@@ -185,6 +215,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq = torch.empty_like(o)
     dk = torch.empty((b, skv, kv, hd), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
+    if q.device.type == "meta":
+        _count_meta(q, k, causal, window, 10)
+        return dq, dk, dv
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd
     fn.argtypes = _BWD_ARGTYPES

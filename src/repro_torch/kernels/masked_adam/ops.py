@@ -14,6 +14,11 @@ steps (the fused phase's K loop): only the gradients are flattened, one
 p, m and v themselves (`core.masked_adam.FlatMaskedAdam`, the LLM
 trainer's in-place step).
 
+A meta tensor (the dry run, `launch/dryrun.py`) passes the CUDA route's
+checks and gets meta outputs of the shapes and dtypes that route
+allocates (none when ``out`` is given); nothing is computed or launched.
+Any other device raises.
+
 ``launches`` counts kernel launches (plain-version calls do not count).
 """
 from __future__ import annotations
@@ -51,7 +56,7 @@ def _check_kernel_args(p, g, m, v, mask, bc):
             raise ValueError(
                 f"{name} must be (B, rows, {stacking.LANES}) like p "
                 f"{tuple(p.shape)}, got {tuple(t.shape)}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (t.device.type == "cuda" and t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
         if name != "mask" and t.dtype not in _DTYPE_CODES:
             raise TypeError(f"{name} dtype {t.dtype} not in float32/bfloat16/"
@@ -82,13 +87,9 @@ def masked_adam_3d(p, g, m, v, mask, bc, *, b1: float, b2: float,
         for dst, src in zip(out, new):
             dst.copy_(src)
         return tuple(out)
-    if p.device.type != "cuda":
-        raise ValueError(f"masked_adam_3d runs on cuda or cpu, not {p.device}")
+    if p.device.type not in ("cuda", "meta"):
+        raise ValueError(f"masked_adam_3d runs on cuda, cpu or meta, not {p.device}")
     _check_kernel_args(p, g, m, v, mask, bc)
-    lib = build.load("masked_adam")
-    fn = lib.masked_adam_3d
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
     if out is None:
         p_out, m_out, v_out = (torch.empty_like(t) for t in (p, m, v))
         u_out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
@@ -97,9 +98,16 @@ def masked_adam_3d(p, g, m, v, mask, bc, *, b1: float, b2: float,
         for src, dst in ((p, p_out), (m, m_out), (v, v_out), (p, u_out)):
             want = torch.float32 if dst is u_out else src.dtype
             if (dst.shape != p.shape or dst.dtype != want or dst.device != p.device
-                    or not dst.is_contiguous() or dst.data_ptr() % 16):
+                    or not dst.is_contiguous()
+                    or (dst.device.type == "cuda" and dst.data_ptr() % 16)):
                 raise ValueError("out must hold contiguous, 16-byte aligned p', m', "
                                  "v' like p, m, v and a float32 u like p")
+    if p.device.type == "meta":
+        return p_out, m_out, v_out, u_out
+    lib = build.load("masked_adam")
+    fn = lib.masked_adam_3d
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
     b, rows, lanes = p.shape
     stream = torch.cuda.current_stream(p.device)
     err = fn(p.data_ptr(), _DTYPE_CODES[p.dtype],

@@ -25,6 +25,12 @@ row of x and dy in registers (rows of whole, aligned 16-byte chunks, at
 most 2,048 bf16 or 1,024 float32 values), and a block per row for the
 rest.
 
+A meta tensor (the dry run, `launch/dryrun.py`) passes the CUDA route's
+checks and gets meta outputs of the shapes and dtypes that route
+allocates, the backward's float32 dw partials included (as many rows as
+the C planner would ask for on an H100 SXM, `H100_SMS`); nothing is
+computed or launched. Any other device raises.
+
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
 ones (plain-version calls do not count).
 """
@@ -55,12 +61,15 @@ VARIANTS = ("block_per_row", "split_row", "warp_per_row")
 BWD_VARIANTS = ("block_per_row", "warp_per_row")
 _BWD_PLAN_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+# the backward planner's constants (csrc/rmsnorm_bwd.cu: kWarps, kLaneChunks,
+# kMaxBlocks) and the SMs of an H100 SXM, for the meta route's dw partials
+_BWD_WARPS, _BWD_LANE_CHUNKS, _BWD_MAX_BLOCKS, H100_SMS = 8, 8, 256, 132
 
 
-def _check(x: torch.Tensor, w: torch.Tensor) -> int:
+def _check(x: torch.Tensor, w: torch.Tensor, devices=("cuda", "meta")) -> int:
     """Raise on what the kernel does not take; the number of rows."""
-    if x.device.type != "cuda":
-        raise ValueError(f"rms_norm runs on cuda or cpu, not {x.device}")
+    if x.device.type not in devices:
+        raise ValueError(f"rms_norm runs on cuda, cpu or meta, not {x.device}")
     d = x.shape[-1]
     if x.dtype not in _DTYPE_CODES or w.dtype not in _DTYPE_CODES:
         raise TypeError(f"x {x.dtype} and w {w.dtype} must be float32 or "
@@ -79,7 +88,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> int:
 def variant(x: torch.Tensor, w: torch.Tensor) -> str:
     """The kernel variant `rms_norm` takes for these CUDA tensors, one of
     `VARIANTS` (its output is a fresh buffer, so 16-byte aligned)."""
-    rows = _check(x, w)
+    rows = _check(x, w, "cuda")
     lib = build.load("rmsnorm")
     fn = lib.rms_norm_variant
     fn.argtypes = _VARIANT_ARGTYPES
@@ -89,6 +98,17 @@ def variant(x: torch.Tensor, w: torch.Tensor) -> str:
     if v < 0:
         raise RuntimeError(f"rms_norm_variant: cannot query {x.device}")
     return VARIANTS[v]
+
+
+def _meta_bwd_blocks(x) -> int:
+    """The dw partial rows the backward's C planner asks for (`rows` of
+    ``rms_norm_bwd_blocks``) on an H100 SXM, for fresh (aligned) buffers."""
+    d = x.shape[-1]
+    rows = x.numel() // max(d, 1)
+    chunks, rem = divmod(d * x.element_size(), 16)
+    if rem == 0 and chunks <= 32 * _BWD_LANE_CHUNKS:
+        return min(-(-rows // _BWD_WARPS), H100_SMS)
+    return min(rows, _BWD_MAX_BLOCKS)
 
 
 def _bwd_plan(fn_name: str, x, dy, dx) -> int:
@@ -107,7 +127,7 @@ def _bwd_plan(fn_name: str, x, dy, dx) -> int:
 def bwd_variant(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> str:
     """The row-pass variant `rms_norm_bwd` takes for these CUDA tensors,
     one of `BWD_VARIANTS` (its dx is a fresh buffer, so 16-byte aligned)."""
-    _check(x, w)
+    _check(x, w, "cuda")
     return BWD_VARIANTS[_bwd_plan("rms_norm_bwd_variant", x, dy.contiguous(), None)]
 
 
@@ -118,7 +138,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor, eps: float):
     rows = _check(x, w)
     d = x.shape[-1]
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    if x.numel() == 0 or x.device.type == "meta":
         return out
     lib = build.load("rmsnorm")
     fn = lib.rms_norm
@@ -151,8 +171,11 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     dw = torch.empty_like(w)
     if x.numel() == 0:
         return dx, dw.zero_()
-    part = torch.empty((_bwd_plan("rms_norm_bwd_blocks", x, dy, dx), d),
-                       dtype=torch.float32, device=x.device)
+    meta = x.device.type == "meta"
+    blocks = _meta_bwd_blocks(x) if meta else _bwd_plan("rms_norm_bwd_blocks", x, dy, dx)
+    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    if meta:
+        return dx, dw
     lib = build.load("rmsnorm_bwd")
     fn = lib.rms_norm_bwd
     fn.argtypes = _BWD_ARGTYPES

@@ -33,10 +33,10 @@ def attn_metas(cfg: ModelConfig) -> dict:
     d, kv, hd = cfg.d_model, cfg.num_kv_heads, cfg.resolved_head_dim
     g = cfg.num_heads // kv
     return {
-        "wq": ParamMeta((d, kv, g, hd)),
-        "wk": ParamMeta((d, kv, hd)),
-        "wv": ParamMeta((d, kv, hd)),
-        "wo": ParamMeta((kv, g, hd, d)),
+        "wq": ParamMeta((d, kv, g, hd), ("attn_embed", "kv_heads", "qgroups", "unsharded")),
+        "wk": ParamMeta((d, kv, hd), ("attn_embed", "kv_heads", "unsharded")),
+        "wv": ParamMeta((d, kv, hd), ("attn_embed", "kv_heads", "unsharded")),
+        "wo": ParamMeta((kv, g, hd, d), ("kv_heads", "qgroups", "unsharded", "attn_embed")),
     }
 
 

@@ -9,13 +9,35 @@ package's sharding, scan or kernel choice (``remat``, ``use_pallas``,
 the port runs eagerly on one card, and a CUDA tensor always takes the
 hand-written kernels.
 
-A ``ParamMeta`` tree describes every leaf's shape and initialiser (the
-JAX package's logical sharding axes are left out: nothing here shards);
-``init_params`` draws real weights from a `torch.Generator`, on the
-generator's own device, so a full-size model is drawn on the card (its
-largest leaves one stacked slice at a time, `WHOLE_DRAW_BYTES`). The
-draws cannot match ``jax.random`` bit for bit, so tests that compare the
-two packages carry the JAX package's weights over instead
+A ``ParamMeta`` tree describes every leaf's shape, its logical axes
+(one name a dimension, the JAX package's vocabulary below) and its
+initialiser. It is the source of truth for three views of a model:
+
+  * ``init_params``      draws real weights from a `torch.Generator`, on
+                         the generator's own device, so a full-size model
+                         is drawn on the card (its largest leaves one
+                         stacked slice at a time, `WHOLE_DRAW_BYTES`);
+  * ``abstract_params``  gives tensors on ``torch.device("meta")``: shapes
+                         and dtypes, no storage (the dry run,
+                         `launch/dryrun.py`);
+  * ``partition_specs``  maps the logical axes to mesh axes through a
+                         rules table (`launch/shardings.py`).
+
+A partition spec here is a plain tuple, one entry a dimension: a mesh
+axis name, a tuple of names, or None (the JAX package's
+``PartitionSpec``, which torch has no counterpart of).
+
+Logical axis vocabulary (the JAX package's):
+  "layers"   the stacked group axis                     (never sharded)
+  "embed"    d_model                                    (FSDP -> "data")
+  "heads"    fused attention head dim (H*hd)            (TP   -> "model")
+  "ff"       mlp hidden                                 (TP   -> "model")
+  "vocab"    vocabulary                                 (TP   -> "model")
+  "experts"  MoE expert dim                             (EP   -> "model")
+  "unsharded" anything replicated (norm scales, biases, conv taps, ...)
+
+The draws cannot match ``jax.random`` bit for bit, so tests that compare
+the two packages carry the JAX package's weights over instead
 (`params_from_numpy`).
 """
 from __future__ import annotations
@@ -23,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -147,8 +170,21 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParamMeta:
     shape: tuple
+    axes: tuple  # logical axis names, len == len(shape)
     init: str = "fan_in"  # fan_in|zeros|ones|normal|embed
     init_scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+
+def is_meta(x) -> bool:
+    return isinstance(x, ParamMeta)
+
+
+def tree_map_meta(fn: Callable[[ParamMeta], Any], metas):
+    return tree.tree_map(fn, metas)
 
 
 # A leaf whose float32 draw would take more than this many bytes is drawn
@@ -216,8 +252,66 @@ def params_from_numpy(params, device="cuda", dtype=None) -> dict:
     return tree.tree_map(leaf, params)
 
 
+def abstract_params(metas, dtype) -> dict:
+    """The tree as tensors on the meta device, in ``dtype``: shapes and
+    dtypes, no storage (the dry run)."""
+    meta = torch.device("meta")
+    return tree_map_meta(lambda m: torch.empty(m.shape, dtype=dtype, device=meta), metas)
+
+
+# Default tensor-parallel rules; fsdp=True additionally shards the embed
+# (d_model) axis of weight matrices over the data axis (ZeRO-3 semantics).
+def sharding_rules(*, fsdp: bool, data_axis="data", model_axis="model") -> dict:
+    return {
+        "layers": None,
+        "embed": data_axis if fsdp else None,
+        "heads": model_axis,
+        "kv_heads": model_axis,
+        "qgroups": None,
+        "ff": model_axis,
+        "vocab": model_axis,
+        "experts": model_axis,
+        "expert_embed": data_axis if fsdp else None,
+        "expert_ff": model_axis,
+        "unsharded": None,
+        # activation/cache logical axes (used by launch/shardings.py)
+        "batch": data_axis,
+        "seq": None,
+        "cache_seq": None,
+    }
+
+
+def meta_pspec(meta: ParamMeta, rules: dict) -> tuple:
+    """Map logical axes -> mesh axes; a mesh axis may appear only once, the
+    first logical axis wins (e.g. MoE (experts, embed, ff): experts->model,
+    then ff must stay unsharded). Tuple rules keep their non-conflicting
+    components (partial FSDP+TP sharding)."""
+    used = set()
+    out = []
+    for ax in meta.axes:
+        mesh_ax = rules.get(ax)
+        parts = (
+            () if mesh_ax is None else (mesh_ax,) if isinstance(mesh_ax, str) else tuple(mesh_ax)
+        )
+        parts = tuple(a for a in parts if a not in used)
+        if not parts:
+            out.append(None)
+        else:
+            used.update(parts)
+            out.append(parts[0] if len(parts) == 1 else parts)
+    return tuple(out)
+
+
+def partition_specs(metas, rules: dict):
+    return tree_map_meta(lambda m: meta_pspec(m, rules), metas)
+
+
 def param_count(metas) -> int:
     return sum(math.prod(m.shape) for m in tree.leaves(metas))
+
+
+def param_bytes(metas, dtype) -> int:
+    return param_count(metas) * dtype.itemsize
 
 
 # ---------------------------------------------------------------------------
@@ -227,15 +321,16 @@ def param_count(metas) -> int:
 
 def norm_meta(d: int) -> ParamMeta:
     # every norm stores its scale as an offset w, applied as (1 + w)
-    return ParamMeta((d,), init="zeros")
+    return ParamMeta((d,), ("unsharded",), init="zeros")
 
 
-def dense_meta(d_in: int, d_out: int, scale=1.0) -> ParamMeta:
-    return ParamMeta((d_in, d_out), init="fan_in", init_scale=scale)
+def dense_meta(d_in: int, d_out: int, ax_in: str, ax_out: str, scale=1.0) -> ParamMeta:
+    return ParamMeta((d_in, d_out), (ax_in, ax_out), init="fan_in", init_scale=scale)
 
 
 def stack_group(metas, n_groups: int):
     """Prepend a 'layers' axis of ``n_groups`` to every leaf of a block
     meta tree."""
-    return tree.tree_map(
-        lambda m: ParamMeta((n_groups, *m.shape), m.init, m.init_scale), metas)
+    return tree_map_meta(
+        lambda m: ParamMeta((n_groups, *m.shape), ("layers", *m.axes), m.init,
+                            m.init_scale), metas)

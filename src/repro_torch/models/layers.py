@@ -85,8 +85,10 @@ def _gated(cfg: ModelConfig) -> bool:
 def mlp_metas(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d, ff = cfg.d_model, (d_ff or cfg.d_ff)
     if _gated(cfg):
-        return {"wg": dense_meta(d, ff), "wu": dense_meta(d, ff), "wd": dense_meta(ff, d)}
-    return {"wu": dense_meta(d, ff), "wd": dense_meta(ff, d)}  # plain gelu (whisper)
+        return {"wg": dense_meta(d, ff, "embed", "ff"), "wu": dense_meta(d, ff, "embed", "ff"),
+                "wd": dense_meta(ff, d, "ff", "embed")}
+    # plain gelu (whisper)
+    return {"wu": dense_meta(d, ff, "embed", "ff"), "wd": dense_meta(ff, d, "ff", "embed")}
 
 
 def glu_act(cfg: ModelConfig, g):
@@ -121,9 +123,11 @@ def sinusoidal_pos(positions, d_model: int, dtype=torch.float32):
 
 
 def embed_metas(cfg: ModelConfig) -> dict:
-    m = {"tok": ParamMeta((cfg.vocab_size, cfg.d_model), init="embed")}
+    m = {"tok": ParamMeta((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                          init="embed")}
     if cfg.pos == "learned":
-        m["pos"] = ParamMeta((cfg.max_position, cfg.d_model), init="embed")
+        m["pos"] = ParamMeta((cfg.max_position, cfg.d_model), ("unsharded", "embed"),
+                             init="embed")
     return m
 
 

@@ -16,6 +16,12 @@ JAX package also computes outside any Pallas kernel. The JAX package's
 layout; nothing here reads them (one card, no sharding), as nothing reads
 ``remat``.
 
+On the meta device (the dry run, `launch/dryrun.py`) which slots are
+kept is not known, and ``keep.nonzero()`` has no meta shape: there the
+dispatch takes the bound, all T*k slots kept, as the JAX package's
+capacity-based dispatch is static in shape. Only the gathered rows'
+count depends on it (T*k rows at most).
+
 `moe_ref` is the dense oracle (every expert on every token, no drops).
 """
 from __future__ import annotations
@@ -29,10 +35,10 @@ from repro_torch.models.layers import glu_act, mlp_apply, mlp_metas
 def moe_metas(cfg: ModelConfig) -> dict:
     d, E, ff = cfg.d_model, cfg.num_experts, cfg.expert_d_ff
     m = {
-        "router": ParamMeta((d, E)),
-        "wg": ParamMeta((E, d, ff)),
-        "wu": ParamMeta((E, d, ff)),
-        "wd": ParamMeta((E, ff, d)),
+        "router": ParamMeta((d, E), ("embed", "unsharded")),
+        "wg": ParamMeta((E, d, ff), ("experts", "expert_embed", "expert_ff")),
+        "wu": ParamMeta((E, d, ff), ("experts", "expert_embed", "expert_ff")),
+        "wd": ParamMeta((E, ff, d), ("experts", "expert_ff", "expert_embed")),
     }
     if cfg.num_shared_experts:
         m["shared"] = mlp_metas(cfg, d_ff=cfg.num_shared_experts * ff)
@@ -89,7 +95,10 @@ def moe_apply(cfg: ModelConfig, p: dict, x):
     pos_f, keep = dispatch(cfg, idx)
 
     # buffer row e * cap + pos of each kept slot, written once (token-major)
-    kept = keep.nonzero()[:, 0]
+    if x.device.type == "meta":  # the bound: every slot kept
+        kept = torch.arange(T * k, device=x.device)
+    else:
+        kept = keep.nonzero()[:, 0]
     buffer = torch.zeros((E * cap, d), dtype=x.dtype, device=x.device)
     buffer.index_copy_(0, idx_f[kept] * cap + pos_f[kept], x_flat.index_select(0, kept // k))
     buffer = buffer.view(E, cap, d)

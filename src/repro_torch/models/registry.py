@@ -16,9 +16,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (  # noqa: F401  (params_from_numpy)
     ModelConfig,
+    abstract_params,
     init_params,
     param_count,
     params_from_numpy,
+    partition_specs,
 )
 
 
@@ -35,6 +37,15 @@ class Model:
         (a `torch.Generator` on the CPU, or on the card for a full-size
         model) and placed on ``device``."""
         return init_params(self.metas(), gen, self.cfg.pdtype, resolve_device(device))
+
+    def abstract(self):
+        """The params as meta tensors in the param dtype (the dry run)."""
+        return abstract_params(self.metas(), self.cfg.pdtype)
+
+    def pspecs(self, rules: dict):
+        """Each leaf's partition spec under ``rules`` (a tuple of mesh axis
+        names, tuples of them, or None, one entry a dimension)."""
+        return partition_specs(self.metas(), rules)
 
     def num_params(self) -> int:
         return param_count(self.metas())
@@ -62,6 +73,17 @@ class Model:
 
     def init_cache(self, batch, seq, mem_len=0, dtype=None, device="cuda"):
         return tfm.init_cache(self.cfg, batch, seq, mem_len, dtype, resolve_device(device))
+
+    def abstract_cache(self, batch, seq, mem_len=0, dtype=None):
+        """The decode cache as meta tensors, each leaf in `cache_dtype`."""
+        dtype = dtype or self.cfg.cdtype
+        meta = torch.device("meta")
+        return {b: {key: torch.empty(m.shape, dtype=tfm.cache_dtype(key, dtype), device=meta)
+                    for key, m in c.items()}
+                for b, c in self.cache_metas(batch, seq, mem_len).items()}
+
+    def cache_pspecs(self, batch, seq, rules, mem_len=0):
+        return partition_specs(self.cache_metas(batch, seq, mem_len), rules)
 
 
 def build(cfg: ModelConfig) -> Model:

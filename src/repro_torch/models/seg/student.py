@@ -55,16 +55,16 @@ class SegConfig:
 
 
 def _conv_meta(kh, kw, cin, cout):
-    return ParamMeta((kh, kw, cin, cout))
+    return ParamMeta((kh, kw, cin, cout), ("unsharded", "unsharded", "embed", "ff"))
 
 
 def _dw_meta(kh, kw, c):
-    return ParamMeta((kh, kw, 1, c))
+    return ParamMeta((kh, kw, 1, c), ("unsharded", "unsharded", "unsharded", "ff"))
 
 
 def _bn_meta(c):  # folded scale/offset pair
-    return {"scale": ParamMeta((c,), init="zeros"),
-            "bias": ParamMeta((c,), init="zeros")}
+    return {"scale": ParamMeta((c,), ("unsharded",), init="zeros"),
+            "bias": ParamMeta((c,), ("unsharded",), init="zeros")}
 
 
 def seg_metas(cfg: SegConfig) -> dict:
@@ -89,7 +89,7 @@ def seg_metas(cfg: SegConfig) -> dict:
         "ctx": {"w": _conv_meta(1, 1, c_prev, head), "bn": _bn_meta(head)},
     }
     m["classifier"] = {"w": _conv_meta(1, 1, head, cfg.n_classes),
-                       "b": ParamMeta((cfg.n_classes,), init="zeros")}
+                       "b": ParamMeta((cfg.n_classes,), ("unsharded",), init="zeros")}
     return m
 
 

@@ -41,17 +41,18 @@ def mamba2_metas(cfg: ModelConfig) -> dict:
     d_inner, H, P, N = _dims(cfg)
     k = cfg.ssm_conv
     return {
-        "w_x": ParamMeta((d, d_inner)),
-        "w_z": ParamMeta((d, d_inner)),
-        "w_bc": ParamMeta((d, 2 * N)),
-        "w_dt": ParamMeta((d, H)),
-        "conv_x": ParamMeta((k, d_inner), init="normal", init_scale=0.1),
-        "conv_bc": ParamMeta((k, 2 * N), init="normal", init_scale=0.1),
-        "a_log": ParamMeta((H,), init="zeros"),
-        "dt_bias": ParamMeta((H,), init="zeros"),
-        "d_skip": ParamMeta((H,), init="ones"),
-        "norm": ParamMeta((d_inner,), init="zeros"),
-        "w_out": ParamMeta((d_inner, d)),
+        "w_x": ParamMeta((d, d_inner), ("embed", "ff")),
+        "w_z": ParamMeta((d, d_inner), ("embed", "ff")),
+        "w_bc": ParamMeta((d, 2 * N), ("embed", "unsharded")),
+        "w_dt": ParamMeta((d, H), ("embed", "unsharded")),
+        "conv_x": ParamMeta((k, d_inner), ("unsharded", "ff"), init="normal", init_scale=0.1),
+        "conv_bc": ParamMeta((k, 2 * N), ("unsharded", "unsharded"), init="normal",
+                             init_scale=0.1),
+        "a_log": ParamMeta((H,), ("unsharded",), init="zeros"),
+        "dt_bias": ParamMeta((H,), ("unsharded",), init="zeros"),
+        "d_skip": ParamMeta((H,), ("unsharded",), init="ones"),
+        "norm": ParamMeta((d_inner,), ("unsharded",), init="zeros"),
+        "w_out": ParamMeta((d_inner, d), ("ff", "embed")),
     }
 
 

@@ -41,27 +41,27 @@ def rwkv6_metas(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     tm = {
         # static token-shift mixes
-        "mu_r": ParamMeta((d,), init="zeros"),
-        "mu_k": ParamMeta((d,), init="zeros"),
-        "mu_v": ParamMeta((d,), init="zeros"),
-        "mu_w": ParamMeta((d,), init="zeros"),
-        "mu_g": ParamMeta((d,), init="zeros"),
-        "w_r": ParamMeta((d, d)),
-        "w_k": ParamMeta((d, d)),
-        "w_v": ParamMeta((d, d)),
-        "w_g": ParamMeta((d, d)),
-        "w_o": ParamMeta((d, d)),
+        "mu_r": ParamMeta((d,), ("unsharded",), init="zeros"),
+        "mu_k": ParamMeta((d,), ("unsharded",), init="zeros"),
+        "mu_v": ParamMeta((d,), ("unsharded",), init="zeros"),
+        "mu_w": ParamMeta((d,), ("unsharded",), init="zeros"),
+        "mu_g": ParamMeta((d,), ("unsharded",), init="zeros"),
+        "w_r": ParamMeta((d, d), ("embed", "unsharded")),
+        "w_k": ParamMeta((d, d), ("embed", "unsharded")),
+        "w_v": ParamMeta((d, d), ("embed", "unsharded")),
+        "w_g": ParamMeta((d, d), ("embed", "unsharded")),
+        "w_o": ParamMeta((d, d), ("unsharded", "embed")),
         # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(x @ a) @ b))
-        "decay_w0": ParamMeta((d,), init="zeros"),
-        "decay_a": ParamMeta((d, LORA_R)),
-        "decay_b": ParamMeta((LORA_R, d)),
-        "bonus_u": ParamMeta((d,), init="zeros"),
-        "ln_x": ParamMeta((d,), init="zeros"),
+        "decay_w0": ParamMeta((d,), ("unsharded",), init="zeros"),
+        "decay_a": ParamMeta((d, LORA_R), ("embed", "unsharded")),
+        "decay_b": ParamMeta((LORA_R, d), ("unsharded", "unsharded")),
+        "bonus_u": ParamMeta((d,), ("unsharded",), init="zeros"),
+        "ln_x": ParamMeta((d,), ("unsharded",), init="zeros"),
     }
     cm = {
-        "mu_k": ParamMeta((d,), init="zeros"),
-        "w_in": ParamMeta((d, cfg.d_ff)),
-        "w_out": ParamMeta((cfg.d_ff, d)),
+        "mu_k": ParamMeta((d,), ("unsharded",), init="zeros"),
+        "w_in": ParamMeta((d, cfg.d_ff), ("embed", "ff")),
+        "w_out": ParamMeta((cfg.d_ff, d), ("ff", "embed")),
     }
     return {"tm": tm, "cm": cm}
 
@@ -108,18 +108,27 @@ def _wkv_chunked(r, k, v, logw, u, chunk: int):
     above = ~strict[None, :, :, None, None]
     y = torch.empty_like(r)
     S_prev = torch.zeros((B, H, P, P), dtype=torch.float32, device=r.device)
+    records = torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, logw))
     for c0 in range(0, S, Lc):
         sl = slice(c0, c0 + Lc)
         ri, ki, vi, wi = r[:, sl], k[:, sl], v[:, sl], logw[:, sl]  # (B,Lc,H,P)
         cum_w = torch.cumsum(wi, dim=1)  # inclusive log decay
         # intra: y_i += sum_{j<i} r_i * exp(cum_w_{i-1} - cum_w_j) k_j * v_j
         #        + r_i * diag(u) k_i v_i  (bonus, j == i)
-        # dec (B,i,j,H,P), built in place: exp overflows to inf on and
-        # above the diagonal, where it is replaced by 0
-        dec = (cum_w[:, :, None] - cum_w[:, None, :]).sub_(wi[:, :, None]).exp_()
-        dec.masked_fill_(above, 0.0)
-        att = dec.mul_(ri[:, :, None]).mul_(ki[:, None]).sum(-1)  # (B,i,j,H)
-        del dec
+        # dec (B,i,j,H,P): exp overflows to inf on and above the diagonal,
+        # where it is replaced by 0. In place, except where autograd
+        # records: exp's backward reads its output, which the in-place
+        # mask and products would overwrite. There the exponent is masked
+        # to -inf first (the same values; a zero gradient, not 0 * inf).
+        seg = cum_w[:, :, None] - cum_w[:, None, :]
+        if records:
+            dec = torch.exp((seg - wi[:, :, None]).masked_fill(above, -torch.inf))
+            att = (dec * ri[:, :, None] * ki[:, None]).sum(-1)  # (B,i,j,H)
+        else:
+            dec = seg.sub_(wi[:, :, None]).exp_()
+            dec.masked_fill_(above, 0.0)
+            att = dec.mul_(ri[:, :, None]).mul_(ki[:, None]).sum(-1)
+        del seg, dec
         y_intra = torch.einsum("bijh,bjhp->bihp", att, vi)
         bonus = (ri * u * ki).sum(-1)  # (B,Lc,H)
         y_intra = y_intra + bonus[..., None] * vi

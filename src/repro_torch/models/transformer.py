@@ -87,7 +87,7 @@ def block_metas(cfg: ModelConfig, kind: str) -> dict:
     if kind == "xattn":
         return {"ln1": norm_meta(d), "xattn": attn.attn_metas(cfg),
                 "ln2": norm_meta(d), "mlp": mlp_metas(cfg),
-                "gate": ParamMeta((1,), init="zeros")}
+                "gate": ParamMeta((1,), ("unsharded",), init="zeros")}
     if kind == "attn_xattn":
         return {"ln1": norm_meta(d), "attn": attn.attn_metas(cfg),
                 "lnx": norm_meta(d), "xattn": attn.attn_metas(cfg),
@@ -351,40 +351,50 @@ def ring_len(cfg: ModelConfig, kind: str, seq: int) -> int:
 
 
 def cache_metas(cfg: ModelConfig, batch: int, seq: int, mem_len: int = 0) -> dict:
-    """ParamMeta tree describing the decode cache, each leaf stacked over
-    the groups: k and v (num_groups, batch, R, KV, hd) for an attention
-    block (and under ``shared`` for the shared attention block); xk and
-    xv (num_groups, batch, mem_len, KV, hd) for a cross-attention block
-    (with k and v for ``attn_xattn``); ssm, conv_x and conv_bc for a
-    Mamba2 block; wkv, tm_last and cm_last for an RWKV6 block."""
+    """ParamMeta tree describing the decode cache (shapes and the JAX
+    package's logical axes), each leaf stacked over the groups: k and v
+    (num_groups, batch, R, KV, hd) for an attention block (and under
+    ``shared`` for the shared attention block); xk and xv (num_groups,
+    batch, mem_len, KV, hd) for a cross-attention block (with k and v for
+    ``attn_xattn``); ssm, conv_x and conv_bc for a Mamba2 block; wkv,
+    tm_last and cm_last for an RWKV6 block. Self-attention caches put
+    their positions on "cache_seq", the memory's on "mem_seq" (odd
+    lengths, 1,601 or 1,500: never sharded)."""
     kv, hd, G = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_groups
 
-    def meta(*shape):
-        return ParamMeta((G, batch) + shape, init="zeros")
+    def meta(shape, axes):
+        return ParamMeta((G, batch) + shape, ("layers", "batch") + axes, init="zeros")
+
+    def kv_meta(length, seq_ax="cache_seq"):
+        return meta((length, kv, hd), (seq_ax, "kv_heads", "unsharded"))
 
     caches = {}
     for i, kind in enumerate(cfg.pattern):
         if kind in ATTN_KINDS:
             r = ring_len(cfg, kind, seq)
-            caches[f"b{i}"] = {"k": meta(r, kv, hd), "v": meta(r, kv, hd)}
+            caches[f"b{i}"] = {"k": kv_meta(r), "v": kv_meta(r)}
         elif kind == "xattn":
-            caches[f"b{i}"] = {"xk": meta(mem_len, kv, hd), "xv": meta(mem_len, kv, hd)}
+            caches[f"b{i}"] = {"xk": kv_meta(mem_len, "mem_seq"),
+                               "xv": kv_meta(mem_len, "mem_seq")}
         elif kind == "attn_xattn":
             r = ring_len(cfg, kind, seq)
-            caches[f"b{i}"] = {"k": meta(r, kv, hd), "v": meta(r, kv, hd),
-                               "xk": meta(mem_len, kv, hd), "xv": meta(mem_len, kv, hd)}
+            caches[f"b{i}"] = {"k": kv_meta(r), "v": kv_meta(r),
+                               "xk": kv_meta(mem_len, "mem_seq"),
+                               "xv": kv_meta(mem_len, "mem_seq")}
         elif kind == "mamba":
             d_inner, H, P, N = mamba2._dims(cfg)
-            caches[f"b{i}"] = {"ssm": meta(H, P, N),
-                               "conv_x": meta(cfg.ssm_conv - 1, d_inner),
-                               "conv_bc": meta(cfg.ssm_conv - 1, 2 * N)}
+            caches[f"b{i}"] = {
+                "ssm": meta((H, P, N), ("unsharded",) * 3),
+                "conv_x": meta((cfg.ssm_conv - 1, d_inner), ("unsharded", "ff")),
+                "conv_bc": meta((cfg.ssm_conv - 1, 2 * N), ("unsharded", "unsharded"))}
         elif kind == "rwkv":
             H, P = rwkv6._dims(cfg)
-            caches[f"b{i}"] = {"wkv": meta(H, P, P), "tm_last": meta(cfg.d_model),
-                               "cm_last": meta(cfg.d_model)}
+            caches[f"b{i}"] = {"wkv": meta((H, P, P), ("unsharded",) * 3),
+                               "tm_last": meta((cfg.d_model,), ("embed",)),
+                               "cm_last": meta((cfg.d_model,), ("embed",))}
     if cfg.shared_attn:
         r = ring_len(cfg, "shared", seq)
-        caches["shared"] = {"k": meta(r, kv, hd), "v": meta(r, kv, hd)}
+        caches["shared"] = {"k": kv_meta(r), "v": kv_meta(r)}
     return caches
 
 

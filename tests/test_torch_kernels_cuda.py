@@ -46,6 +46,13 @@ a ``grad_fn`` with gradients reaching every input (F11); a float16 input
 refused; Gemma 2B's smoke model's loss and gradients under remat on the
 card against the CPU (1e-4 relative norm) with the exact launch counts;
 `FlatMaskedAdam` in place bit for bit against the tree step.
+
+The wrappers' meta branches (the dry run's) against the CUDA routes at
+the paths' shapes: the meta call's outputs have the CUDA call's shapes,
+strides and dtypes, and its traced bytes above its arguments are what the
+CUDA call allocated (within 2 MiB an allocation: the caching allocator
+may hand out a block with a large segment's tail); K3-bwd's dw partial
+rows as the C planner sizes them on the card.
 """
 import time
 
@@ -1157,3 +1164,87 @@ def test_flat_adam_in_place_equals_the_tree_step_on_the_card(dev):
         for a, b in zip(tree.leaves(st.params) + tree.leaves(st.u_tree),
                         tree.leaves(ref_p) + tree.leaves(u)):
             assert torch.equal(a.detach(), b)
+
+
+# ---------------------------------------------------------------------------
+# The wrappers' meta branches (the dry run) against the CUDA routes
+# ---------------------------------------------------------------------------
+
+
+def _meta_like(t):
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta")
+
+
+def _alloc_delta(fn, *args):
+    """(outputs, the most bytes the call allocated above what it began
+    with) on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _same_outputs_and_workspace(fn, *args):
+    """The meta call's outputs have the CUDA call's shapes, strides and
+    dtypes, and its traced peak above its arguments is what the CUDA call
+    allocated, within 2 MiB an allocation (the caching allocator may keep
+    the tail of a large segment in the block it hands out)."""
+    from repro_torch.roofline.analysis import trace_facts
+
+    out, cuda_bytes = _alloc_delta(fn, *args)
+    facts = trace_facts(fn, *(_meta_like(a) if isinstance(a, torch.Tensor) else a
+                              for a in args))
+    outs = out if isinstance(out, tuple) else (out,)
+    metas = facts["out"] if isinstance(facts["out"], tuple) else (facts["out"],)
+    assert [(tuple(t.shape), t.stride(), t.dtype) for t in metas] == [
+        (tuple(t.shape), t.stride(), t.dtype) for t in outs]
+    meta_bytes = facts["peak_bytes"] - facts["arg_bytes"]
+    assert abs(meta_bytes - cuda_bytes) <= (2 << 20) * (len(outs) + 3), (meta_bytes, cuda_bytes)
+
+
+@pytest.mark.parametrize("shape", [(2, 8000, 3584), (2, 1, 3584), (2, 2048, 2048)])
+def test_rmsnorm_meta_branch_matches_the_kernel(dev, shape):
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(shape[-1], generator=g, device=dev).to(torch.bfloat16)
+    _same_outputs_and_workspace(lambda x, w: norm_ops._forward(x, w, 1e-6), x, w)
+    _same_outputs_and_workspace(norm_ops.rms_norm_bwd, x, w, torch.randn_like(x))
+    assert norm_ops._meta_bwd_blocks(x) == norm_ops._bwd_plan(
+        "rms_norm_bwd_blocks", x, x, torch.empty_like(x))
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,causal,window", [
+    (2, 2048, 1, 8, 256, True, 0), (2, 1000, 8, 2, 256, True, 512),
+    (1, 700, 4, 8, 112, True, 0)])
+def test_flash_attention_meta_branch_matches_the_kernel(dev, B, S, KV, G, hd, causal,
+                                                        window):
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn((B, S, KV, G, hd), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    _same_outputs_and_workspace(
+        lambda q, k, v: attn_ops._forward(q, k, v, causal, window, 0.0, want_lse=True),
+        q, k, v)
+    o, lse = attn_ops._forward(q, k, v, causal, window, 0.0, want_lse=True)
+    _same_outputs_and_workspace(
+        lambda q, k, v, o, lse, do: attn_ops.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, window=window), q, k, v, o, lse,
+        torch.randn_like(o))
+
+
+def test_masked_adam_meta_branch_matches_the_kernel(dev):
+    g = torch.Generator(device=dev).manual_seed(18)
+    p, gr = (torch.randn((1, 4096, 128), generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    m, v = torch.zeros_like(p), torch.zeros(p.shape, device=dev)
+    mask = torch.rand(p.shape, generator=g, device=dev) < 0.1
+    bc = torch.full((1,), 1e-3, device=dev)
+    _same_outputs_and_workspace(
+        lambda *a: adam_ops.masked_adam_3d(*a, b1=0.9, b2=0.999, eps=1e-8), p, gr, m, v,
+        mask, bc)

@@ -387,7 +387,7 @@ def test_large_leaves_draw_slice_by_slice(monkeypatch):
     next draw of the generator (what drawing the slices in turn gives)."""
     from repro_torch.models import common
 
-    meta = common.ParamMeta((6, 64, 96))  # fan-in 64
+    meta = common.ParamMeta((6, 64, 96), ("layers", "embed", "ff"))  # fan-in 64
     monkeypatch.setattr(common, "WHOLE_DRAW_BYTES", 4 * 64 * 96)  # one slice
     draw = lambda: common._leaf_init(meta, torch.Generator().manual_seed(7),
                                      torch.bfloat16, torch.device("cpu"))

@@ -218,6 +218,26 @@ def _port_loss_and_grads(arch, dtype, pn, toks):
     return float(loss.detach()), [l.grad.numpy() for l in tree.leaves(params)]
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_rwkv6_gradients_match_jax_in_float64(remat):
+    """RWKV6's chunked wkv builds its decay products in place only where
+    autograd does not record: built in place, exp's saved output was
+    overwritten, so backward raised without remat and gave wrong
+    gradients under it (up to 2.3x a leaf's largest value)."""
+    arch = "rwkv6-3b"
+    pn, toks = _setup(arch, "float64")
+    with jax.enable_x64(True):
+        want_loss, want = _jax_loss_and_grads(arch, "float64", pn, toks)
+    cfg = get_smoke(arch, param_dtype="float64", compute_dtype="float64", remat=remat)
+    params = tree.tree_map(lambda l: l.requires_grad_(), params_from_numpy(pn, device="cpu"))
+    loss, _ = build(cfg).loss(params, {"tokens": torch.from_numpy(toks[:, :-1]),
+                                       "labels": torch.from_numpy(toks[:, 1:])})
+    loss.backward()
+    assert abs(float(loss.detach()) - want_loss) <= 1e-6 * abs(want_loss)
+    for leaf, b in zip(tree.leaves(params), want):
+        _close(leaf.grad.numpy(), b, 1e-4, 1e-5)
+
+
 @pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-9b", "moonshot-v1-16b-a3b"])
 def test_loss_and_gradients_match_jax_in_float64(arch):
     """Gemma 2B (MQA), Gemma-2 9B (softcaps, window, post-norms) and
