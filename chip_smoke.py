@@ -18,7 +18,14 @@ its own:
    path's shape (8 sessions x 334,405 float32 coordinates, sessions at
    different step counts) and on two mixed-dtype stacks: p, m, v and u
    must be equal bit for bit; then its time, the plain version's and the
-   bound;
+   bound, at B = 8 and B = 1, and its launch shapes there. Then K1 with the trainer's clip fused in, in place, against
+   `clip_ref` + its plain version given the gradient-norm kernel's own
+   norm: p, m, v, u and the clipped gradients it writes back bit for bit,
+   at B = 1, B = 8, a ragged size, with infinite and NaN gradients and
+   with a NaN and an infinite norm. Then the gradient-norm kernel
+   (`kernels/grad_norm`) on three buffers (bf16, float32, float16; 11.2M
+   values): within 1e-6 of a float64 norm, within 1e-5 of its plain
+   version, the same bits on two calls, timed beside the plain version;
 3. K2, the top-k threshold kernel (a radix select over many blocks per
    session; the grid is printed and must hold more than one block per
    session), against its plain version at the main path's shape, at 3
@@ -183,10 +190,20 @@ its own:
    gradient-guided; the delta encoded at each phase's end and applied to
    the edge's copy of the init. Per step: the loss (finite), the kernel
    launches (exactly `train_expected_launches`: K3 73, K3-bwd 37, K4 36,
-   K4-bwd 18, K1 1), the stages' times; at step 1 every leaf's gradient
-   finite and not all zero; the peak memory, the step's MFU against
-   `roofline.analytic`, the downlink per phase; the edge's params equal
-   the trained ones through fp16 where a mask selected. Then K4-bwd and
+   K4-bwd 18, the gradient norm 1, K1 1), the stages' times (``clip`` is
+   the gradient-norm kernel, ``adam`` K1 with the clip fused in); at step
+   1 every leaf's (clipped) gradient finite and not all zero, K1's p, m,
+   v, u and clipped gradients bit for bit against `clip_ref` + its plain
+   version on slices of 65,536 coordinates (the first, the middle, the
+   last and one across coordinate 2^31), the norm kernel on the step's
+   raw gradients within 1e-6 of a float64 norm and the same bits on two
+   more calls, and the clipped gradients within one bf16 ulp of the
+   trainer's former per-leaf clip on a copy of them; the
+   peak memory, the step's MFU against `roofline.analytic`, the downlink
+   per phase; the gradient-norm kernel on the trainer's 2,506,172,416
+   gradients timed beside its plain version and
+   ``torch.linalg.vector_norm``; the edge's params equal the trained ones
+   through fp16 where a mask selected. Then K4-bwd and
    K3-bwd on the run's layer-0 tensors and on N(0, 1) inputs, within 2x
    the bf16 plain backward's error from float64, K4-bwd on an option grid
    against its plain backward, both timed beside their bounds, plain
@@ -235,6 +252,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import batched, selection, timing  # noqa: E402
+from repro_torch.core import masked_adam as adam_core  # noqa: E402
 from repro_torch.core.batched import stack_trees, train_phases_fused  # noqa: E402
 from repro_torch.core.client import EdgeClient  # noqa: E402
 from repro_torch.core.delta import apply_delta, encode_delta, encode_delta_stack  # noqa: E402
@@ -242,10 +260,12 @@ from repro_torch.core.masked_adam import init_state, masked_adam_update  # noqa:
 from repro_torch.core.server import AMSConfig, AMSSession, Task  # noqa: E402
 from repro_torch.data.tokens import StreamConfig, TokenStream  # noqa: E402
 from repro_torch.data.video import VideoConfig  # noqa: E402
-from repro_torch.device import host_to_device  # noqa: E402
+from repro_torch.device import host_to_device, sm_count  # noqa: E402
 from repro_torch.kernels import build, stacking  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
+from repro_torch.kernels.grad_norm import ops as gnorm_ops  # noqa: E402
+from repro_torch.kernels.grad_norm import ref as gnorm_ref  # noqa: E402
 from repro_torch.kernels.masked_adam import ops as adam_ops  # noqa: E402
 from repro_torch.kernels.masked_adam import ref as adam_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
@@ -461,9 +481,109 @@ def k1_phase(dev, bw, flops):
     print(f"K1 masked_adam_3d at B=1 {tuple(one[0].shape)}: bitwise equal to plain; "
           f"kernel {b1_ms:.4f} ms, plain {b1_plain_ms:.4f} ms, bound "
           f"{b1_bound_ms:.4f} ms ({b1_bytes / 1e6:.1f} MB)")
-    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+    sms = sm_count(dev)
+    shapes = {label: adam_ops.launch_shape(bufs[0].numel() // 8, sms)
+              for label, bufs in (("B=8", main), ("B=1", one))}
+    print(f"K1 launch shapes (threads, blocks): {shapes}")
+    clip = k1_clip_phase(dev, main, bc, one, bc1)
+    return dict(err=max(err, clip["err"]), ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, b1_ms=b1_ms, b1_plain_ms=b1_plain_ms,
-                b1_bound_ms=b1_bound_ms)
+                b1_bound_ms=b1_bound_ms, shapes=shapes, clip_cases=clip["cases"])
+
+
+def k1_clip_compare(bufs, bc, gn, clip: float) -> float:
+    """K1 with the clip, in place on copies of ``bufs`` (p, g, m, v, mask),
+    against `clip_ref` + the plain version on the originals given the same
+    norm: p', m', v', u and the clipped g bit for bit, or raise."""
+    p, g, m, v, mask = (t.clone() for t in bufs)
+    u = torch.empty(p.shape, device=p.device)
+    adam_ops.masked_adam_3d(p, g, m, v, mask, bc, **ADAM, out=(p, m, v, u), gn=gn, clip=clip)
+    g_want = adam_ref.clip_ref(bufs[1], gn, clip)
+    want = adam_ref.masked_adam_ref(bufs[0], g_want, *bufs[2:], bc, **ADAM)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, k, r in zip(("p", "m", "v", "u", "g"), (p, m, v, u, g), (*want, g_want)):
+        check(k.dtype == r.dtype and torch.equal(k.view(torch.uint8), r.view(torch.uint8)),
+              f"fused K1 {name} differs from clip_ref + the plain version bit for bit")
+        err = max(err, float((k.float() - r.float()).abs().nan_to_num().max()))
+    return err
+
+
+def k1_clip_phase(dev, main, bc, one, bc1) -> dict:
+    """K1 with the clip fused in, against its plain version given the norm
+    kernel's own norm (or a non-finite one)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    ragged = (3, 17, stacking.LANES)  # 816 vectors: 12.75 blocks of 64 threads
+    dts = (torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32)
+    rag = tuple(t.to(dt) for t, dt in zip(
+        (torch.randn(ragged, generator=g, device=dev) for _ in range(4)), dts))
+    rag = (*rag[:3], rag[3].abs(), torch.rand(ragged, generator=g, device=dev) < FRAC)
+    bc3 = bc[:3].contiguous()
+    bad = tuple(t.clone() for t in one)
+    flat = bad[1].view(-1)
+    flat[7], flat[flat.numel() // 3], flat[-1] = float("inf"), float("nan"), -float("inf")
+    finite_gn = gnorm_ops.grad_norm([bad[1].nan_to_num(0.0, 0.0, 0.0)])
+    cases = [("B=1", one, bc1, gnorm_ops.grad_norm([one[1]])),
+             ("B=8", main, bc, gnorm_ops.grad_norm([main[1]])),
+             ("ragged (3, 17, 128) bf16", rag, bc3, gnorm_ops.grad_norm([rag[1]])),
+             ("B=1 with inf and NaN gradients", bad, bc1, finite_gn),
+             ("B=1 with a NaN norm", one, bc1, torch.full((), float("nan"), device=dev)),
+             ("B=1 with an infinite norm", one, bc1, torch.full((), float("inf"), device=dev))]
+    err, out = 0.0, []
+    for label, bufs, bcx, gn in cases:
+        err = max(err, k1_clip_compare(bufs, bcx, gn, TRAIN_CLIP))
+        out.append(dict(case=label, gn=float(gn)))
+    print(f"K1 with the clip fused in (clip {TRAIN_CLIP}), in place: bitwise equal to clip_ref "
+          f"+ plain (p, m, v, u, the clipped g) in {json.dumps(out)}")
+    return dict(err=err, cases=out)
+
+
+def norm_f64(bufs, chunk: int = 1 << 26) -> float:
+    """The L2 norm of ``bufs`` in float64, a chunk at a time."""
+    total = torch.zeros((), dtype=torch.float64, device=bufs[0].device)
+    for b in bufs:
+        for c in b.view(-1).split(chunk):
+            total += c.double().square().sum()
+    return float(total.sqrt())
+
+
+GRAD_NORM_TOL, GRAD_NORM_PLAIN_TOL = 1e-6, 1e-5  # relative, to float64 / to plain
+
+
+def grad_norm_check(bufs, label: str) -> dict:
+    """The norm kernel on ``bufs`` twice (the same bits), against a float64
+    norm and the plain version; raises outside the tolerances."""
+    gn = gnorm_ops.grad_norm(bufs)
+    again = gnorm_ops.grad_norm(bufs)
+    plain = float(gnorm_ref.grad_norm_ref(bufs))
+    f64 = norm_f64(bufs)
+    r = dict(gn=float(gn), f64=f64, plain=plain, rel_f64=abs(float(gn) - f64) / f64,
+             rel_plain=abs(float(gn) - plain) / plain,
+             same_bits=torch.equal(gn.view(torch.int32), again.view(torch.int32)))
+    print(f"grad_norm {label}: {json.dumps(r)}")
+    check(r["same_bits"], f"grad_norm {label}: two calls give the same bits")
+    check(r["rel_f64"] <= GRAD_NORM_TOL, f"grad_norm {label}: within {GRAD_NORM_TOL} of float64")
+    check(r["rel_plain"] <= GRAD_NORM_PLAIN_TOL,
+          f"grad_norm {label}: within {GRAD_NORM_PLAIN_TOL} of its plain version")
+    return r
+
+
+def grad_norm_phase(dev, bw) -> dict:
+    """The gradient-norm kernel at a mid size: three dtype groups."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    bufs = [(torch.randn((1, r, stacking.LANES), generator=g, device=dev) * s).to(dt)
+            for r, s, dt in ((75_000, 1e-2, torch.bfloat16), (10_000, 1.0, torch.float32),
+                             (2_613, 3.0, torch.float16))]
+    r = grad_norm_check(bufs, f"on {[tuple(b.shape) for b in bufs]}")
+    nbytes = sum(b.numel() * b.element_size() for b in bufs)
+    r.update(ms=device_ms(lambda: gnorm_ops.grad_norm(bufs)),
+             plain_ms=device_ms(lambda: gnorm_ref.grad_norm_ref(bufs)),
+             bound_ms=1e3 * nbytes / bw, blocks=gnorm_ops.launch_blocks(
+                 sum(b.numel() // 8 for b in bufs), sm_count(dev)))
+    print(f"grad_norm at {sum(b.numel() for b in bufs):,} values: kernel {r['ms']:.4f} ms "
+          f"({r['blocks']} blocks), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB)")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -2140,6 +2260,9 @@ def vlm_phase(dev, bw, bf16_flops) -> dict:
 TRAIN_ARCH, TRAIN_PARAMS = "gemma-2b", 2_506_172_416
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_PHASES = 2, 2048, 4, 2
 TRAIN_GAMMA, TRAIN_LR, TRAIN_CLIP, TRAIN_STREAM_VOCAB = 0.05, 1e-3, 1.0, 32_768
+# K1's bytes a coordinate in the trainer's step: bf16 p, g, m and float32 v
+# read, the mask byte, bf16 p, m, the clipped g and float32 v, u written
+K1_TRAIN_BYTES = 2 + 2 + 2 + 4 + 1 + 2 + 2 + 2 + 4 + 4
 # K4-bwd's bf16 route: the dQ pass and the dK/dV pass (then the G reduce)
 BWD_WGMMA_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
 # K4-bwd on every option the forward takes, against its plain version:
@@ -2173,10 +2296,10 @@ def train_expected_launches(cfg) -> dict:
     post-norms) and K4 once in the forward, and again when backward
     recomputes its group (remat); K3-bwd and K4-bwd once per forward norm
     and attention; the final norm once forward (outside the groups) and
-    once backward; K1 once per param dtype (one: every leaf is the
-    config's param dtype). Every K4-bwd launch takes the bf16 wgmma route.
-    For Gemma 2B (18 layers): K3 73, K3-bwd 37, K4 36, K4-bwd 18 (all
-    bf16_wgmma), K1 1."""
+    once backward; the gradient norm once (the clip) and K1 once per param
+    dtype (one: every leaf is the config's param dtype). Every K4-bwd
+    launch takes the bf16 wgmma route. For Gemma 2B (18 layers): K3 73,
+    K3-bwd 37, K4 36, K4-bwd 18 (all bf16_wgmma), the norm 1, K1 1."""
     check(all(k in ("attn", "attn_local") for k in cfg.pattern),
           "train_expected_launches counts dense attention stacks")
     norms = (2 + 2 * cfg.post_norm) * cfg.num_layers
@@ -2184,8 +2307,8 @@ def train_expected_launches(cfg) -> dict:
     return {"rms_norm": rec * norms + 1, "rms_norm_bwd": norms + 1,
             "flash_attention": rec * cfg.num_layers,
             "flash_attention_bwd": cfg.num_layers,
-            "flash_attention_bwd_bf16_wgmma": cfg.num_layers, "masked_adam_3d": 1,
-            "topk_threshold_bits": 0}
+            "flash_attention_bwd_bf16_wgmma": cfg.num_layers, "grad_norm": 1,
+            "masked_adam_3d": 1, "topk_threshold_bits": 0}
 
 
 def train_counts() -> dict:
@@ -2193,7 +2316,8 @@ def train_counts() -> dict:
             "flash_attention": attn_ops.launches,
             "flash_attention_bwd": attn_ops.bwd_launches,
             "flash_attention_bwd_bf16_wgmma": attn_ops.bwd_launches_by_route["bf16_wgmma"],
-            "masked_adam_3d": adam_ops.launches, "topk_threshold_bits": topk_ops.launches}
+            "grad_norm": gnorm_ops.launches, "masked_adam_3d": adam_ops.launches,
+            "topk_threshold_bits": topk_ops.launches}
 
 
 class StageClock:
@@ -2433,6 +2557,105 @@ def k3_bwd_phase(dev, captured, bw) -> dict:
                 bound_ms=bound_ms, bound_by="bytes", shape=list(x2.shape), variant=variant)
 
 
+def bf16_order(t):
+    """bf16 values as integers in the order of their values (+0 and -0
+    both 0): adjacent representable values differ by one."""
+    bits = t.view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def former_clip_check(raw, state, gn: float, clip: float, chunk: int = 1 << 26) -> dict:
+    """The trainer's former clip (plain torch, per leaf: the norm a leaf's
+    float32 sum of squares at a time, then ``min(1, clip / max(norm,
+    1e-9))``, a ``where`` on the non-finite) applied to ``raw``, a copy of
+    a step's gradient buffers, a chunk at a time, against the clipped
+    gradients the fused K1 left in ``state.g``: the former norm, the
+    largest distance in bf16 values and the share of equal values."""
+    leaves = tree.leaves(state.views(raw))
+    former_gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
+    scale = torch.clamp(clip / torch.clamp(former_gn, min=1e-9), max=1.0)
+    ok = torch.isfinite(former_gn)
+    worst, equal, total = 0, 0, 0
+    for r, c in zip(raw, state.g):
+        check(r.dtype == torch.bfloat16, "the trainer's gradients are bf16")
+        for rc, cc in zip(r.view(-1).split(chunk), c.view(-1).split(chunk)):
+            old = torch.where(ok & torch.isfinite(rc), rc.to(torch.float32) * scale,
+                              0.0).to(rc.dtype)
+            d = (bf16_order(old) - bf16_order(cc)).abs()
+            worst = max(worst, int(d.max()))
+            equal += int((d == 0).sum())
+            total += rc.numel()
+    return dict(former_gn=float(former_gn), former_scale=float(scale),
+                max_bf16_steps=worst, equal_share=equal / total, within_one_ulp=worst <= 1)
+
+
+K1_SLICE = 1 << 16  # coordinates a slice
+
+
+def k1_slices_before(state, raw) -> dict:
+    """Copies, before the trainer's K1 runs in place, of slices of its
+    buffers (p, m, v, the mask and the raw gradients ``raw``) and the
+    step's bias correction: each dtype group's first, middle and last
+    ``K1_SLICE`` coordinates, and one across coordinate 2^31, where an
+    index stops fitting in 32 bits."""
+    _, bc = adam_ops.bias_correction(state.count, lr=TRAIN_LR, b1=ADAM["b1"], b2=ADAM["b2"])
+    out = []
+    for grp, bufs in enumerate(zip(state.p, raw, state.m, state.v, state.mask_buf)):
+        n = bufs[0].numel()
+        starts = sorted({0, n // 2 // 8 * 8, n - K1_SLICE}
+                        | ({(1 << 31) - K1_SLICE // 2} if n >= (1 << 31) + K1_SLICE else set()))
+        for a in starts:
+            out.append(dict(group=grp, start=a, bufs=tuple(
+                b.view(-1)[a:a + K1_SLICE].clone().view(1, -1) for b in bufs)))
+    check(any(s["start"] + K1_SLICE > 1 << 31 for s in out),
+          "a K1 slice of the trainer's buffers lies past coordinate 2^31")
+    return dict(before=(out, bc))
+
+
+def k1_slices_check(state, before, gn) -> list:
+    """The trainer's K1 after step 1 against `clip_ref` + the plain
+    version on the slices `k1_slices_before` copied: p, m, v, u and the
+    clipped g, bit for bit."""
+    slices, bc = before
+    out = []
+    for s in slices:
+        p, g, m, v, mask = s["bufs"]
+        g_want = adam_ref.clip_ref(g, gn, TRAIN_CLIP)
+        want = (*adam_ref.masked_adam_ref(p, g_want, m, v, mask, bc, **ADAM), g_want)
+        got = tuple(b[s["group"]].view(-1)[s["start"]:s["start"] + K1_SLICE].view(1, -1)
+                    for b in (state.p, state.m, state.v, state.u, state.g))
+        same = {name: bool(k.dtype == r.dtype and torch.equal(k.view(torch.uint8),
+                                                                r.view(torch.uint8)))
+                for name, k, r in zip(("p", "m", "v", "u", "g"), got, want)}
+        out.append(dict(group=s["group"], start=s["start"], equal=all(same.values()),
+                        **{k: v for k, v in same.items() if not v},
+                        selected=int(mask.sum())))
+    return out
+
+
+def train_norm_phase(g_bufs, bw) -> dict:
+    """The gradient-norm kernel on the trainer's gradient buffers (the
+    last step's clipped gradients, 2,506,172,416 bf16 values), checked as
+    `grad_norm_check` does, then timed beside its plain version and
+    ``torch.linalg.vector_norm`` (one call for one buffer)."""
+    r = grad_norm_check(g_bufs, f"on the trainer's {[tuple(b.shape) for b in g_bufs]}")
+    check(len(g_bufs) == 1, "one dtype group: torch.linalg.vector_norm takes one buffer")
+    g = g_bufs[0]
+    lib = float(torch.linalg.vector_norm(g, dtype=torch.float32))
+    nbytes = sum(b.numel() * b.element_size() for b in g_bufs)
+    r.update(ms=device_ms(lambda: gnorm_ops.grad_norm(g_bufs), n=10, reps=3),
+             plain_ms=device_ms(lambda: gnorm_ref.grad_norm_ref(g_bufs), n=2, reps=3),
+             library_ms=device_ms(lambda: torch.linalg.vector_norm(g, dtype=torch.float32),
+                                  n=10, reps=3),
+             library=lib, bound_ms=1e3 * nbytes / bw,
+             blocks=gnorm_ops.launch_blocks(g.numel() // 8, sm_count(g.device)))
+    print(f"grad_norm at the trainer's {g.numel():,} bf16 gradients: kernel {r['ms']:.4f} ms "
+          f"({r['blocks']} blocks), plain {r['plain_ms']:.4f} ms, torch.linalg.vector_norm "
+          f"{r['library_ms']:.4f} ms (its norm {lib!r}), bound {r['bound_ms']:.4f} ms "
+          f"({nbytes / 1e9:.2f} GB)")
+    return r
+
+
 def train_path(dev, bw, bf16_flops) -> dict:
     """Gemma 2B at full size trained by `launch/train.train`: 2 phases of
     K = 4 steps at 2 x 2,048 tokens, the first on a random mask drawn on
@@ -2446,9 +2669,18 @@ def train_path(dev, bw, bf16_flops) -> dict:
     init elsewhere. Prints each step's loss and stage times (CUDA events;
     sampling and encoding on the host clock), the peak memory beside its
     prediction, the step's MFU against `roofline.analytic` and the
-    downlink per phase. K3-bwd and K4-bwd are then held and timed on the
-    run's layer-0 tensors, captured by wrapping the wrappers during step
-    1 (the last call of each is layer 0's)."""
+    downlink per phase. At step 1 the gradient norm's input is copied
+    (wrapping `FlatMaskedAdam.grad_norm`), with slices of p, m, v and the
+    mask (`k1_slices_before`); after the step, K1's in-place outputs on
+    those slices are held to `clip_ref` + the plain version bit for bit,
+    the norm kernel to a float64 norm of the copy and to two more calls
+    on it (launches that are not the path's: the next step's count starts
+    after them), and the clipped gradients K1 left to the trainer's
+    former per-leaf clip of the copy (within one bf16 ulp). After training the norm kernel is timed on the trainer's
+    gradient buffer beside its plain version and
+    ``torch.linalg.vector_norm``. K3-bwd and K4-bwd are then held and
+    timed on the run's layer-0 tensors, captured by wrapping the wrappers
+    during step 1 (the last call of each is layer 0's)."""
     t0 = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)
     check(build_model(cfg).num_params() == TRAIN_PARAMS and cfg.remat,
@@ -2472,6 +2704,15 @@ def train_path(dev, bw, bf16_flops) -> dict:
         captured["norm"] = tuple(t.detach().clone() for t in (x, w, dy))
         return real_norm_bwd(x, w, dy, eps)
 
+    real_grad_norm, norm_cap, k1_cap = adam_core.FlatMaskedAdam.grad_norm, {}, {}
+
+    def cap_grad_norm(state):
+        gn = real_grad_norm(state)
+        if not norm_cap:
+            norm_cap.update(gn=gn, raw=tuple(b.clone() for b in state.g))
+            k1_cap.update(k1_slices_before(state, norm_cap["raw"]))
+        return gn
+
     clock = StageClock()
     last = {}
 
@@ -2483,15 +2724,29 @@ def train_path(dev, bw, bf16_flops) -> dict:
         clock.step += 1
         if it == 0:
             attn_ops.flash_attention_bwd, norm_ops.rms_norm_bwd = real_attn_bwd, real_norm_bwd
+            adam_core.FlatMaskedAdam.grad_norm = real_grad_norm
             leaves = tree.leaves(state.grads)
             grads_ok["finite"] = all(bool(torch.isfinite(g).all()) for g in leaves)
             grads_ok["nonzero"] = all(bool((g != 0).any()) for g in leaves)
             grads_ok["leaves"] = len(leaves)
+            raw, gn = norm_cap.pop("raw"), norm_cap.pop("gn")
+            k1_cap["slices"] = k1_slices_check(state, k1_cap.pop("before"), gn)
+            f64 = norm_f64(raw)
+            # the same bits again on the same gradients, in launches that
+            # are not the path's: the next step's window opens after them
+            again = [gnorm_ops.grad_norm(raw) for _ in range(2)]
+            norm_cap.update(gn=float(gn), f64=f64, rel_f64=abs(float(gn) - f64) / f64,
+                            same_bits=all(torch.equal(gn.view(torch.int32), a.view(torch.int32))
+                                          for a in again))
+            norm_cap.update(former_clip_check(raw, state, float(gn), TRAIN_CLIP))
+            del raw, again
+            last = train_counts()
         print(f"train step {it}: loss {loss:.4f}, downlink so far {down:,} bytes; "
               f"launches {counts[-1]}")
 
     stream = TokenStream(StreamConfig(vocab_size=TRAIN_STREAM_VOCAB, seed=1))
     attn_ops.flash_attention_bwd, norm_ops.rms_norm_bwd = cap_attn, cap_norm
+    adam_core.FlatMaskedAdam.grad_norm = cap_grad_norm
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     last = train_counts()
@@ -2503,6 +2758,7 @@ def train_path(dev, bw, bf16_flops) -> dict:
                   log=log, clock=clock)
     finally:
         attn_ops.flash_attention_bwd, norm_ops.rms_norm_bwd = real_attn_bwd, real_norm_bwd
+        adam_core.FlatMaskedAdam.grad_norm = real_grad_norm
     train_s = time.perf_counter() - t1
     peak = torch.cuda.max_memory_allocated()
     # what the trainer holds beside the step: the edge's copy of the init
@@ -2512,6 +2768,15 @@ def train_path(dev, bw, bf16_flops) -> dict:
     check(grads_ok.get("finite") and grads_ok.get("nonzero"),
           f"step 1: every leaf's gradient finite and not all zero ({grads_ok})")
     check(all(c == want for c in counts), f"launches per step {counts}, want {want}")
+    print(f"train step 1's gradient norm: {json.dumps(norm_cap)}")
+    check(norm_cap["same_bits"] and norm_cap["rel_f64"] <= GRAD_NORM_TOL,
+          f"step 1's norm within {GRAD_NORM_TOL} of float64 and the same bits twice")
+    check(norm_cap["within_one_ulp"], "step 1's clipped gradients within one bf16 ulp of "
+                                      "the former per-leaf clip")
+    print(f"train step 1's K1 against clip_ref + plain on slices: {json.dumps(k1_cap['slices'])}")
+    check(all(c["equal"] for c in k1_cap["slices"]),
+          "step 1's p, m, v, u and clipped g bit for bit on every slice")
+    norm_time = train_norm_phase(r.state.g, bw)
 
     # the edge: the init with both deltas applied
     t2 = time.perf_counter()
@@ -2563,6 +2828,7 @@ def train_path(dev, bw, bf16_flops) -> dict:
           f"derived from the config); step-1 gradients finite and non-zero on all "
           f"{grads_ok['leaves']} leaves")
     return dict(cfg=cfg, steps=steps, step_ms=step_ms, warm_step_ms=warm, mfu=mfu,
+                norm_step1=norm_cap, k1_step1=k1_cap["slices"], norm=norm_time,
                 model_flops=cost["model_flops"], peak=peak, mem=mem, counts=counts, want=want,
                 losses=losses, downlink=downlink, t_init=t_init, train_s=train_s,
                 edge_s=edge_s, captured=captured, seconds=time.perf_counter() - t0)
@@ -2661,6 +2927,7 @@ def main() -> None:
 
     # 2-3. kernels against their plain versions
     k1 = k1_phase(dev, bw, flops)
+    gnorm = grad_norm_phase(dev, bw)
     k2 = k2_phase(dev, bw, flops)
 
     # 4. the main path: one traced eager iteration, then 3 fused phases
@@ -2787,8 +3054,35 @@ def main() -> None:
              bound_ms=k1["bound_ms"], bound_by="bytes", library_ms=None,
              b1_ms=k1["b1_ms"], b1_plain_ms=k1["b1_plain_ms"],
              b1_bound_ms=k1["b1_bound_ms"],
+             launch_shapes=k1["shapes"],
+             fused_clip_bitwise=k1["clip_cases"], train_step1_slices=tr["k1_step1"],
              train_launches=train_launches["masked_adam_3d"],
-             train_adam_ms=statistics.median(s["adam"] for s in tr["steps"])),
+             train_adam_ms=statistics.median(s["adam"] for s in tr["steps"]),
+             train_adam_ms_by_step=[s["adam"] for s in tr["steps"]],
+             train_bound_ms=1e3 * TRAIN_PARAMS * K1_TRAIN_BYTES / bw,
+             train_bound_bytes=TRAIN_PARAMS * K1_TRAIN_BYTES),
+        dict(name="grad_norm", route="cuda", source="src/repro_torch/csrc/grad_norm.cu",
+             replaces="src/repro/launch/train.py:59",
+             replaces_what="no pallas_call: the JAX trainer's global gradient norm (jnp, "
+                           "left to XLA), which the port's clip reads on the card",
+             launches=train_launches["grad_norm"],
+             launches_per_step=tr["want"]["grad_norm"],
+             max_abs_err=max(abs(r["gn"] - r["plain"]) for r in (gnorm, tr["norm"])),
+             max_abs_err_on="the kernel against its plain float32 version",
+             rel_err_to_float64=max(gnorm["rel_f64"], tr["norm"]["rel_f64"],
+                                    tr["norm_step1"]["rel_f64"]),
+             same_bits_twice=gnorm["same_bits"] and tr["norm"]["same_bits"]
+             and tr["norm_step1"]["same_bits"],
+             ms=tr["norm"]["ms"], plain_ms=tr["norm"]["plain_ms"],
+             bound_ms=tr["norm"]["bound_ms"], bound_by="bytes",
+             library_ms=tr["norm"]["library_ms"],
+             library_call="torch.linalg.vector_norm(g, dtype=torch.float32)",
+             shape=[TRAIN_PARAMS, "bf16"], blocks=tr["norm"]["blocks"],
+             train_clip_ms=statistics.median(s["clip"] for s in tr["steps"]),
+             train_clip_ms_by_step=[s["clip"] for s in tr["steps"]],
+             step1=tr["norm_step1"],
+             mid_size=dict((k, gnorm[k]) for k in ("ms", "plain_ms", "bound_ms", "blocks",
+                                                  "rel_f64", "rel_plain"))),
         dict(name="topk_threshold_bits", route="cuda",
              source="src/repro_torch/csrc/topk_mask.cu",
              replaces="src/repro/kernels/topk_mask/topk_mask.py:50",
@@ -2963,12 +3257,21 @@ def main() -> None:
                                            f"{vlm['cfg'].name} ({vlm['cfg'].num_layers} "
                                            "layers)": vlm_shares}))
     print(f"Train summary: {tr['cfg'].name} step {tr['warm_step_ms']:.1f} ms (median after "
-          f"the first), MFU {tr['mfu']:.3f}, peak {tr['peak']:,} bytes (the dry run's "
+          f"the first; clip {statistics.median(s['clip'] for s in tr['steps'][1:]):.2f} ms, "
+          f"K1 {statistics.median(s['adam'] for s in tr['steps'][1:]):.2f} ms against its "
+          f"{1e3 * TRAIN_PARAMS * K1_TRAIN_BYTES / bw:.2f} ms bound), MFU {tr['mfu']:.3f}, "
+          f"peak {tr['peak']:,} bytes (the dry run's "
           f"prediction {dry['rows']['Train']['predicted_peak']:,} above the path's start, "
           f"measured {dry['rows']['Train']['measured_peak']:,}); K4-bwd {k4b['ms']:.3f} ms (SDPA backward "
           f"{k4b['library_ms']:.3f}, bound {k4b['bound_ms']:.4f}), K3-bwd {k3b['ms']:.4f} ms "
           f"(F.rms_norm backward {k3b['library_ms']:.4f}, bound {k3b['bound_ms']:.4f}); the "
           f"phase took {tr['seconds']:.1f} s")
+    print(f"K1 and gradient-norm summary: K1 at B=1 {k1['b1_ms']:.4f} ms (bound "
+          f"{k1['b1_bound_ms']:.4f}), at B=8 {k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f}); "
+          f"the norm at {TRAIN_PARAMS:,} bf16 values "
+          f"{tr['norm']['ms']:.4f} ms (bound {tr['norm']['bound_ms']:.4f}, plain "
+          f"{tr['norm']['plain_ms']:.4f}, torch.linalg.vector_norm "
+          f"{tr['norm']['library_ms']:.4f})")
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

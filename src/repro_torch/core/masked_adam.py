@@ -18,6 +18,9 @@ kernel's plain version.
 (the LLM trainer): params, gradients, moments, mask and u live in flat
 per-dtype buffers across steps, the model's leaves are views into them,
 and the kernel updates p, m and v where they lie, with no per-step copy.
+Its step can clip the gradients to a global norm first (the JAX
+trainer's clip): the gradient-norm kernel reads the flat gradients once,
+and the masked-Adam kernel applies the clip as it steps.
 
 `momentum_update` (the Just-In-Time baseline's momentum SGD) is plain
 PyTorch on either device: the JAX package has no kernel for it.
@@ -30,6 +33,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.kernels import stacking
+from repro_torch.kernels.grad_norm.ops import grad_norm
 from repro_torch.kernels.masked_adam.ops import (bias_correction, masked_adam_3d,
                                                  masked_adam_stacked)
 from repro_torch.kernels.masked_adam.ref import masked_adam_ref
@@ -95,7 +99,9 @@ class FlatMaskedAdam:
     backward accumulates there (`zero_grad` clears it first). ``grads``,
     ``mask`` and ``u`` are trees of views into their buffers. `step`
     runs one kernel launch per dtype group, writing p, m, v and u in
-    place: the arithmetic of `masked_adam_update`, bit for bit.
+    place: the arithmetic of `masked_adam_update`, bit for bit. Given the
+    norm from `grad_norm` (one launch over every group) and a clip, each
+    group's launch clips g, writing the clipped gradients back.
 
     Building it copies the given params once into ``p``; the caller drops
     its own tree afterwards."""
@@ -136,16 +142,26 @@ class FlatMaskedAdam:
             for dst, src in zip(tree.leaves(self.mask), tree.leaves(mask)):
                 dst.copy_(src)
 
+    def grad_norm(self) -> torch.Tensor:
+        """The global L2 norm of the gradients in ``g``, a float32 scalar
+        on their device (the gradient-norm kernel; no host sync)."""
+        with torch.no_grad():
+            return grad_norm(self.g)
+
     def step(self, *, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
-             eps: float = 1e-8) -> None:
+             eps: float = 1e-8, gn=None, clip: float = 0.0) -> None:
         """One inner iteration (paper lines 7-13) over the gradients in
-        ``g``, in place; ``u`` holds its update afterwards."""
+        ``g``, in place; ``u`` holds its update afterwards. Given ``gn``
+        (`grad_norm`) and a positive ``clip``, the gradients are first
+        clipped to global norm ``clip`` with the JAX trainer's non-finite
+        guard (`kernels.masked_adam.ref.clip_ref`), and ``g`` holds the
+        clipped gradients afterwards; one without the other raises."""
         i, bc = bias_correction(self.count, lr=lr, b1=b1, b2=b2)
         with torch.no_grad():
             for p, g, m, v, b, u in zip(self.p, self.g, self.m, self.v, self.mask_buf,
                                         self.u):
                 masked_adam_3d(p, g, m, v, b, bc, b1=b1, b2=b2, eps=eps,
-                               out=(p, m, v, u))
+                               out=(p, m, v, u), gn=gn, clip=clip)
         self.count = i
 
 

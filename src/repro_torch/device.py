@@ -19,6 +19,17 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+H100_SMS = 132  # what a meta-device plan assumes
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, for a kernel's launch shape (`H100_SMS`
+    on the meta device, where the dry run plans for an H100 SXM)."""
+    if device.type == "meta":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def host_to_device(array, device) -> torch.Tensor:
     """A host array (frames, labels) as one tensor on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)

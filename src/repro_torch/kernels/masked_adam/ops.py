@@ -12,7 +12,15 @@ steps (the fused phase's K loop): only the gradients are flattened, one
 ``torch.cat`` per dtype group, and the outputs stay flat. Given ``out``,
 `masked_adam_3d` writes p', m', v' and u into those buffers, which may be
 p, m and v themselves (`core.masked_adam.FlatMaskedAdam`, the LLM
-trainer's in-place step).
+trainer's in-place step). Given ``gn``, the global gradient norm as a
+float32 tensor of one value on the device (`kernels.grad_norm.ops.
+grad_norm`), the step first applies the JAX trainer's clip to ``clip``
+and its non-finite guard to g (`ref.clip_ref`) and writes the clipped
+gradients over g, in the same launch.
+
+The kernel's grid is one-dimensional over every session's 8-coordinate
+vectors; `launch_shape` picks its block size and block count from the
+work and the card's SMs.
 
 A meta tensor (the dry run, `launch/dryrun.py`) passes the CUDA route's
 checks and gets meta outputs of the shapes and dtypes that route
@@ -28,15 +36,38 @@ import ctypes
 import torch
 
 from repro_torch import tree
+from repro_torch.device import sm_count
 from repro_torch.kernels import build, stacking
-from repro_torch.kernels.masked_adam.ref import masked_adam_ref
+from repro_torch.kernels.masked_adam.ref import clip_ref, masked_adam_ref
 
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+             + [ctypes.c_float] + [ctypes.c_void_p] * 4
              + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 5
-             + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+THREADS = 64          # a block (at most csrc/masked_adam.cu kMaxThreads)
+THREADS_PER_SM = 512  # the strided grid's
+STRIDED_UP_TO = 10    # vectors a thread of the strided grid
+
+
+def launch_shape(vecs: int, sms: int) -> tuple[int, int]:
+    """``(threads, blocks)`` of K1's grid for ``vecs`` 8-coordinate
+    vectors (all sessions) on a card with ``sms`` SMs, in blocks of
+    `THREADS`. Up to `THREADS_PER_SM` threads an SM, one vector a thread
+    (B = 1: ~5 blocks on every SM, where 256-thread blocks put one or two
+    on each); above that and up to `STRIDED_UP_TO` vectors a thread, that
+    grid strides over the rest (B = 8, 5 vectors a thread: no partial
+    second wave); above that, one vector a thread again (B = 32 at 20
+    vectors a thread, and Gemma 2B's step, where a strided thread's
+    serial loads fall behind). `STRIDED_UP_TO` lies between those two
+    measured sizes. Measured on an H100 by ``scripts/k1_launch_shapes.py``
+    (PERF.md)."""
+    per_thread = vecs / (sms * THREADS_PER_SM)
+    if 1 < per_thread <= STRIDED_UP_TO:
+        return THREADS, sms * THREADS_PER_SM // THREADS
+    return THREADS, max(1, -(-vecs // THREADS))
 
 
 def bias_correction(count, *, lr: float, b1: float, b2: float):
@@ -47,7 +78,7 @@ def bias_correction(count, *, lr: float, b1: float, b2: float):
     return i, lr * torch.sqrt(1.0 - b2 ** i32) / (1.0 - b1 ** i32)
 
 
-def _check_kernel_args(p, g, m, v, mask, bc):
+def _check_kernel_args(p, g, m, v, mask, bc, gn=None):
     bufs = {"p": p, "g": g, "m": m, "v": v, "mask": mask}
     for name, t in bufs.items():
         if t.device != p.device:
@@ -67,10 +98,13 @@ def _check_kernel_args(p, g, m, v, mask, bc):
             or bc.shape != (p.shape[0],) or not bc.is_contiguous()):
         raise ValueError(f"bc must be a contiguous float32 ({p.shape[0]},) "
                          f"tensor on {p.device}")
+    if gn is not None and (gn.device != p.device or gn.dtype != torch.float32
+                           or gn.numel() != 1):
+        raise ValueError(f"gn must be one float32 value on {p.device}")
 
 
 def masked_adam_3d(p, g, m, v, mask, bc, *, b1: float, b2: float,
-                   eps: float, out=None):
+                   eps: float, out=None, gn=None, clip: float = 0.0):
     """One fused masked-Adam step over ``(B, rows, 128)`` buffers; ``bc``
     is the (B,) float32 bias correction per session. Returns
     ``(p', m', v', u)`` with p', m', v' in their source dtypes and u in
@@ -78,9 +112,16 @@ def masked_adam_3d(p, g, m, v, mask, bc, *, b1: float, b2: float,
     v, u float32), which may be p, m and v themselves: each thread of the
     kernel reads its 8 coordinates of every input before it writes them,
     so the step can run in place (a 2.5B-parameter model's state has no
-    room for a second copy)."""
+    room for a second copy). Given ``gn`` and a positive ``clip``, g is
+    clipped first (`ref.clip_ref`) and the clipped gradients are written
+    over g on every device; one without the other raises."""
     global launches
+    if (gn is not None) != (clip > 0):
+        raise ValueError(f"gn and a positive clip go together (clip {clip}, gn "
+                         f"{'given' if gn is not None else 'None'})")
     if p.device.type == "cpu":
+        if gn is not None:
+            g.copy_(clip_ref(g, gn, clip))
         new = masked_adam_ref(p, g, m, v, mask, bc, b1=b1, b2=b2, eps=eps)
         if out is None:
             return new
@@ -89,7 +130,7 @@ def masked_adam_3d(p, g, m, v, mask, bc, *, b1: float, b2: float,
         return tuple(out)
     if p.device.type not in ("cuda", "meta"):
         raise ValueError(f"masked_adam_3d runs on cuda, cpu or meta, not {p.device}")
-    _check_kernel_args(p, g, m, v, mask, bc)
+    _check_kernel_args(p, g, m, v, mask, bc, gn)
     if out is None:
         p_out, m_out, v_out = (torch.empty_like(t) for t in (p, m, v))
         u_out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
@@ -109,15 +150,16 @@ def masked_adam_3d(p, g, m, v, mask, bc, *, b1: float, b2: float,
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     b, rows, lanes = p.shape
+    threads, blocks = launch_shape(p.numel() // 8, sm_count(p.device))
     stream = torch.cuda.current_stream(p.device)
     err = fn(p.data_ptr(), _DTYPE_CODES[p.dtype],
              g.data_ptr(), _DTYPE_CODES[g.dtype],
              m.data_ptr(), _DTYPE_CODES[m.dtype],
              v.data_ptr(), _DTYPE_CODES[v.dtype],
-             mask.data_ptr(), bc.data_ptr(),
+             mask.data_ptr(), bc.data_ptr(), None if gn is None else gn.data_ptr(), clip,
              p_out.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
              u_out.data_ptr(), rows * lanes, b,
-             b1, 1.0 - b1, b2, 1.0 - b2, eps,
+             b1, 1.0 - b1, b2, 1.0 - b2, eps, threads, blocks,
              p.device.index, stream.cuda_stream)
     build.check(lib, err, "masked_adam_3d launch")
     launches += 1

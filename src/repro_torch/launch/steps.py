@@ -8,27 +8,8 @@ import contextlib
 
 import torch
 
-from repro_torch import tree
 from repro_torch.core.masked_adam import FlatMaskedAdam
 from repro_torch.models.registry import Model
-
-
-def clip_grads_(grads, clip: float) -> torch.Tensor:
-    """The JAX trainer's global grad-norm clip and non-finite guard, in
-    place on a gradient tree: the norm in float32, each leaf's sum of
-    squares added in leaf order; every leaf scaled by ``min(1, clip /
-    max(norm, 1e-9))`` in float32 and set to 0 where it, or the norm, is
-    not finite (a ``where``, not a multiply: 0 * nan is nan). Returns the
-    norm."""
-    leaves = tree.leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
-    scale = torch.clamp(clip / torch.clamp(gn, min=1e-9), max=1.0)
-    ok = torch.isfinite(gn)
-    with torch.no_grad():
-        for g in leaves:
-            g.copy_(torch.where(ok & torch.isfinite(g), g.to(torch.float32) * scale,
-                                0.0).to(g.dtype))
-    return gn
 
 
 def make_train_step(model: Model, lr: float = 1e-3, clip: float = 0.0, clock=None):
@@ -39,10 +20,13 @@ def make_train_step(model: Model, lr: float = 1e-3, clip: float = 0.0, clock=Non
     returns new trees; a 2.5B-parameter model's state has no room for a
     second copy). ``u`` is the tree of the step's updates (views into the
     state), ``loss`` the step's loss, detached. With ``clip``, the
-    gradients are clipped as `clip_grads_` does (the JAX trainer's own
-    step; its `make_train_step` has no clip). ``clock(stage)``, where
-    given, returns a context manager around each stage:
-    ``forward_backward``, ``clip`` and ``adam``."""
+    gradients are clipped to that global norm with a non-finite guard, as
+    the JAX trainer's own step does (its `make_train_step` has no clip):
+    the ``clip`` stage takes the norm (`FlatMaskedAdam.grad_norm`) and the
+    ``adam`` stage clips inside the masked-Adam kernel
+    (`FlatMaskedAdam.step`). ``clock(stage)``, where given, returns a
+    context manager around each stage: ``forward_backward``, ``clip`` and
+    ``adam``."""
     stage = clock or (lambda name: contextlib.nullcontext())
 
     def train_step(state: FlatMaskedAdam, batch):
@@ -50,11 +34,12 @@ def make_train_step(model: Model, lr: float = 1e-3, clip: float = 0.0, clock=Non
             state.zero_grad()
             loss, _ = model.loss(state.params, batch)
             loss.backward()
+        gn = None
         if clip:
             with stage("clip"):
-                clip_grads_(state.grads, clip)
+                gn = state.grad_norm()
         with stage("adam"):
-            state.step(lr=lr)
+            state.step(lr=lr, clip=clip, gn=gn)
         return state.u_tree, loss.detach()
 
     return train_step

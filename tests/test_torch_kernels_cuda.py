@@ -4,7 +4,12 @@ at first use) and skip on a host without one; on the GPU host run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-K1 (masked Adam) must equal its plain version bit for bit; K2 (top-k
+K1 (masked Adam) must equal its plain version bit for bit, also with the
+trainer's clip fused in (given the gradient-norm kernel's own norm: every
+output and the clipped gradients it writes back, at B = 1 and B = 8, in
+place, with infinite and NaN gradients and a non-finite norm) and inside
+a CUDA graph; the gradient-norm kernel must agree with a float64 norm
+within 1e-6 relative and give the same bits twice; K2 (top-k
 threshold bits) exactly, with byte-identical masks; K3 (RMSNorm) and K4
 (flash attention) within one bf16 ulp (+1e-5) in bfloat16, and within 2e-6
 and 2e-5 in float32. K4's bfloat16 cases go through its tensor-core
@@ -62,8 +67,10 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import masked_adam, selection
+from repro_torch.kernels.grad_norm import ops as gnorm_ops
+from repro_torch.kernels.grad_norm.ref import grad_norm_ref
 from repro_torch.kernels.masked_adam import ops as adam_ops
-from repro_torch.kernels.masked_adam.ref import masked_adam_ref
+from repro_torch.kernels.masked_adam.ref import clip_ref, masked_adam_ref
 from repro_torch.kernels.topk_mask import ops as topk_ops
 from repro_torch.kernels.topk_mask.ref import topk_threshold_bits_ref
 
@@ -113,6 +120,131 @@ def test_sequential_update_takes_the_kernel(dev):
         cpu(params), cpu(grads), cpu(masked_adam.init_state(params)), cpu(mask))
     for a, b in zip(tree.leaves((p1, st1, u1)), tree.leaves((p2, st2, u2))):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-6, atol=1e-7)
+
+
+def _norm_f64(bufs) -> float:
+    return float(sum(b.double().square().sum() for b in bufs).sqrt())
+
+
+@pytest.mark.parametrize("rows,dtypes", [
+    ((1,), (torch.float32,)),
+    ((1000, 3, 33333), (torch.bfloat16, torch.float32, torch.float16)),
+    ((2613, 8 * 2613), (torch.float32, torch.bfloat16)),
+    ((1 << 19,), (torch.bfloat16,)),  # 67M values: the grid strides, unrolled
+])
+def test_grad_norm_kernel_against_float64_and_deterministic(dev, rows, dtypes):
+    g = torch.Generator(device=dev).manual_seed(20)
+    bufs = [(torch.randn((1, r, 128), generator=g, device=dev) * 10.0 ** -j).to(dt)
+            for j, (r, dt) in enumerate(zip(rows, dtypes))]
+    n0 = gnorm_ops.launches
+    gn = gnorm_ops.grad_norm(bufs)
+    again = gnorm_ops.grad_norm(bufs)
+    assert gnorm_ops.launches == n0 + 2
+    assert gn.shape == () and gn.dtype == torch.float32 and gn.device == dev
+    assert torch.equal(gn.view(torch.int32), again.view(torch.int32))
+    truth = _norm_f64(bufs)
+    assert abs(float(gn) - truth) <= 1e-6 * truth
+    assert abs(float(grad_norm_ref(bufs)) - truth) <= 1e-5 * truth
+
+
+@pytest.mark.parametrize("bad,want", [(float("inf"), "inf"), (float("nan"), "nan"),
+                                      (3e30, "inf")])
+def test_grad_norm_kernel_non_finite(dev, bad, want):
+    """An infinite or NaN gradient, or squares whose sum overflows float32,
+    give the plain version's non-finite norm."""
+    a = torch.zeros((1, 40, 128), device=dev)
+    b = torch.ones((1, 3, 128), dtype=torch.bfloat16, device=dev)
+    a[0, 17, 5] = bad
+    if bad == 3e30:
+        a[0, 18, :] = bad
+    gn, ref = gnorm_ops.grad_norm([a, b]), grad_norm_ref([a, b])
+    check = torch.isinf if want == "inf" else torch.isnan
+    assert bool(check(gn)) and bool(check(ref))
+
+
+def _clip_case(dev, b, rows, dtypes, case, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, rows, 128)
+    p, gr, m, v = (torch.randn(shape, generator=g, device=dev).to(dt) for dt in dtypes)
+    v = v.abs()
+    if case == "nonfinite_g":
+        flat = gr.view(-1)
+        flat[5], flat[-3], flat[flat.numel() // 2] = float("inf"), float("nan"), -float("inf")
+    mask = torch.rand(shape, generator=g, device=dev) < 0.3
+    _, bc = adam_ops.bias_correction(torch.arange(b, dtype=torch.int32, device=dev) * 3,
+                                     lr=1e-3, b1=0.9, b2=0.999)
+    if case in ("over", "nonfinite_g"):
+        gn = gnorm_ops.grad_norm([gr])  # the kernel's own norm
+    elif case == "under":
+        gn = gnorm_ops.grad_norm([gr]) * 1e-6  # below the clip: scale 1
+    else:
+        gn = torch.full((), float(case), device=dev)  # "nan", "inf"
+    return p, gr, m, v, mask, bc, gn
+
+
+@pytest.mark.parametrize("b,rows", [(1, 2613), (8, 2613), (1, 17), (3, 1000)])
+@pytest.mark.parametrize("dtypes", [
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float32,) * 4,
+    (torch.float16, torch.float16, torch.float32, torch.float16),
+])
+@pytest.mark.parametrize("case", ["over", "under", "nonfinite_g", "nan", "inf"])
+def test_masked_adam_fused_clip_bitwise_in_place(dev, b, rows, dtypes, case):
+    """K1 with the clip, in place (p, m, v, u and the clipped g), against
+    `clip_ref` + `masked_adam_ref` on copies of the inputs, given the same
+    norm: bit for bit."""
+    p, gr, m, v, mask, bc, gn = _clip_case(dev, b, rows, dtypes, case, 21)
+    clip = 1.0
+    g_want = clip_ref(gr, gn, clip)
+    want = masked_adam_ref(p, g_want, m, v, mask, bc, b1=0.9, b2=0.999, eps=1e-8)
+    u = torch.empty(p.shape, device=dev)
+    n0 = adam_ops.launches
+    out = adam_ops.masked_adam_3d(p, gr, m, v, mask, bc, b1=0.9, b2=0.999, eps=1e-8,
+                                  out=(p, m, v, u), gn=gn, clip=clip)
+    assert adam_ops.launches == n0 + 1 and out[0] is p and out[3] is u
+    for k, r in zip((p, m, v, u, gr), (*want, g_want)):
+        assert k.dtype == r.dtype and torch.equal(k.view(torch.uint8), r.view(torch.uint8))
+    if case in ("nan", "inf"):
+        assert not bool(gr.any())
+    if case == "nonfinite_g":
+        assert bool(torch.isfinite(gr).all())
+
+
+@pytest.mark.parametrize("b,rows", [(1, 2613), (8, 2613), (1, 1)])
+def test_masked_adam_kernel_bitwise_in_place_without_clip(dev, b, rows):
+    """No clip: the step in place equals the plain version bit for bit and
+    leaves g untouched."""
+    p, gr, m, v, mask, bc, _ = _clip_case(
+        dev, b, rows, (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32), "over", 22)
+    g0 = gr.clone()
+    want = masked_adam_ref(p, gr, m, v, mask, bc, b1=0.9, b2=0.999, eps=1e-8)
+    u = torch.empty(p.shape, device=dev)
+    adam_ops.masked_adam_3d(p, gr, m, v, mask, bc, b1=0.9, b2=0.999, eps=1e-8,
+                            out=(p, m, v, u))
+    for k, r in zip((p, m, v, u), want):
+        assert torch.equal(k.view(torch.uint8), r.view(torch.uint8))
+    assert torch.equal(gr, g0)
+
+
+def test_masked_adam_kernel_in_a_cuda_graph(dev):
+    """K1 without the clip captured into a CUDA graph and replayed: the
+    eager call's bits."""
+    p, gr, m, v, mask, bc, _ = _clip_case(dev, 8, 2613, (torch.float32,) * 4, "over", 23)
+    want = adam_ops.masked_adam_3d(p, gr, m, v, mask, bc, b1=0.9, b2=0.999, eps=1e-8)
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(s):
+        adam_ops.masked_adam_3d(p, gr, m, v, mask, bc, b1=0.9, b2=0.999, eps=1e-8)
+        with torch.cuda.graph(graph, stream=s):
+            got = adam_ops.masked_adam_3d(p, gr, m, v, mask, bc, b1=0.9, b2=0.999, eps=1e-8)
+    torch.cuda.current_stream(dev).wait_stream(s)
+    for t in got:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for k, r in zip(got, want):
+        assert torch.equal(k.view(torch.uint8), r.view(torch.uint8))
 
 
 @pytest.mark.parametrize("case", ["mixed", "ties", "zeros", "nan"])
@@ -1166,6 +1298,45 @@ def test_flat_adam_in_place_equals_the_tree_step_on_the_card(dev):
             assert torch.equal(a.detach(), b)
 
 
+def test_flat_adam_with_clip_equals_the_clipped_tree_step_on_the_card(dev):
+    """`FlatMaskedAdam` with the clip (the norm kernel, then K1 clipping in
+    place) against `clip_ref` on each gradient leaf with the same norm and
+    `masked_adam_update`: bit for bit, bf16 and float32 groups; ``grads``
+    holds the clipped gradients afterwards; one norm launch and one K1
+    launch per dtype group a step; a norm without a positive clip, or a
+    clip without a norm, raises before any launch."""
+    from repro_torch.core.masked_adam import FlatMaskedAdam
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    params = {"a": torch.randn(300, 7, generator=g, device=dev).to(torch.bfloat16),
+              "b": {"c": torch.randn(1001, generator=g, device=dev)}}
+    mask = tree.tree_map(lambda l: torch.rand(l.shape, generator=g, device=dev) < 0.3,
+                         params)
+    ref_p, ref_s = tree.tree_map(torch.clone, params), masked_adam.init_state(params)
+    st = FlatMaskedAdam(params)
+    st.set_mask(mask)
+    for scale in (30.0, 1e-3, 30.0):  # over the clip, under it, over it
+        grads = tree.tree_map(lambda l: (torch.randn(l.shape, generator=g, device=dev)
+                                         * scale).to(l.dtype), params)
+        with torch.no_grad():
+            for dst, src in zip(tree.leaves(st.grads), tree.leaves(grads)):
+                dst.copy_(src)
+        gn = st.grad_norm()
+        n0 = gnorm_ops.launches, adam_ops.launches
+        st.step(lr=1e-2, clip=1.0, gn=gn)
+        assert (gnorm_ops.launches, adam_ops.launches) == (n0[0], n0[1] + 2)
+        clipped = tree.tree_map(lambda l: clip_ref(l, gn, 1.0), grads)
+        ref_p, ref_s, u = masked_adam.masked_adam_update(ref_p, clipped, ref_s, mask, lr=1e-2)
+        for a, b in zip(tree.leaves(st.params) + tree.leaves(st.u_tree) + tree.leaves(st.grads),
+                        tree.leaves(ref_p) + tree.leaves(u) + tree.leaves(clipped)):
+            assert torch.equal(a.detach(), b)
+    n0 = adam_ops.launches
+    for kw in (dict(clip=1.0), dict(gn=gn), dict(gn=gn, clip=0.0)):  # one without the other
+        with pytest.raises(ValueError, match="go together"):
+            st.step(lr=1e-2, **kw)
+    assert adam_ops.launches == n0
+
+
 # ---------------------------------------------------------------------------
 # The wrappers' meta branches (the dry run) against the CUDA routes
 # ---------------------------------------------------------------------------
@@ -1248,3 +1419,16 @@ def test_masked_adam_meta_branch_matches_the_kernel(dev):
     _same_outputs_and_workspace(
         lambda *a: adam_ops.masked_adam_3d(*a, b1=0.9, b2=0.999, eps=1e-8), p, gr, m, v,
         mask, bc)
+
+
+def test_grad_norm_and_clipped_adam_meta_branches_match_the_kernels(dev):
+    g = torch.Generator(device=dev).manual_seed(19)
+    a = torch.randn((1, 4096, 128), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((1, 300, 128), generator=g, device=dev)
+    _same_outputs_and_workspace(lambda a, b: gnorm_ops.grad_norm([a, b]), a, b)
+    m, v = torch.zeros_like(a), torch.zeros(a.shape, device=dev)
+    mask = torch.rand(a.shape, generator=g, device=dev) < 0.1
+    bc, gn = torch.full((1,), 1e-3, device=dev), gnorm_ops.grad_norm([a])
+    _same_outputs_and_workspace(
+        lambda *t: adam_ops.masked_adam_3d(*t[:6], b1=0.9, b2=0.999, eps=1e-8, gn=t[6],
+                                           clip=1.0), a.clone(), a, m, v, mask, bc, gn)
