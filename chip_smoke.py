@@ -51,9 +51,9 @@ its own:
    are held against their plain versions again on the run's real updates
    and gradients; the flat-layout optimizer loop against the tree steps
    it replaced (bit for bit); one phase through the eager loop twice and
-   the graph twice, with the distances between them; and each stage of a
-   phase is timed on its own, the flat-layout Adam step beside the tree
-   step;
+   the graph twice, all four equal bit for bit (the student's loss/grad
+   is deterministic on the card); and each stage of a phase is timed on
+   its own, the flat-layout Adam step beside the tree step;
 5. the streaming schemes (``sim/runner.run_scheme``, the paper's Table 1):
    the width-4.0 student pretrained on the card (``pretrain_student``,
    ``PRETRAIN_STEPS`` steps from seed 42 on 256x256 videos), then all
@@ -82,6 +82,22 @@ its own:
    report: per stage the measured steady seconds on the card against
    ``GPUCostModel``'s modeled seconds, and its `serving_stage_report`
    (model efficiency, HBM roofline fraction, bottleneck);
+   then sharded execution (`sharded_phase`): 4 pool slots
+   (``GPUPool(n_gpus=4, device_backend="torch")``; on a one-card host all
+   four are ``cuda:0``) of 2 width-4.0 sessions each, fed as the main
+   path feeds its sessions, through 3 rounds (a random mask, then two
+   gradient-guided) in the ``graph`` shape, by three identical fleets:
+   per-group ``train_phases_fused(force_stack=True)``,
+   ``train_phases_sharded(devices=[None] * 4)`` and
+   ``train_phases_sharded(devices=pool.torch_devices())``. Every round's
+   wire masks, wire bytes and committed params must be equal bit for bit
+   across the three; ``sharded_info()`` exact; K1 exactly K per graph
+   replay plus one per warm-up, K2 one per gradient-guided group-round;
+   the last round under ``core.timing``, whose drift report must cover
+   slots 0-3 per device; the current CUDA device unchanged. Prints the
+   serial and sharded dispatch windows and whole calls, their ratio
+   (held above 1 only on two or more distinct cards) and the sessions
+   that the measured round sustains against ``t_update``;
 7. the LLM serving path, after ``batched.cache_clear()`` has released the
    fused phase's graphs and their memory: Gemma-2 9B at full width and depth (42 layers,
    d_model 3584, random bf16 weights drawn on the card from seed 0), a
@@ -253,7 +269,9 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import batched, selection, timing  # noqa: E402
 from repro_torch.core import masked_adam as adam_core  # noqa: E402
-from repro_torch.core.batched import stack_trees, train_phases_fused  # noqa: E402
+from repro_torch.core.batched import (stack_trees, train_phases_fused,  # noqa: E402
+                                      train_phases_sharded)
+from repro_torch.core.scheduler import GPUCostModel  # noqa: E402
 from repro_torch.core.client import EdgeClient  # noqa: E402
 from repro_torch.core.delta import apply_delta, encode_delta, encode_delta_stack  # noqa: E402
 from repro_torch.core.masked_adam import init_state, masked_adam_update  # noqa: E402
@@ -298,7 +316,8 @@ from repro_torch.launch.dryrun import lower_pair  # noqa: E402
 from repro_torch.roofline.analysis import (ALLOC_GRANULE, roofline_terms,  # noqa: E402
                                            serving_stage_report)
 from repro_torch.roofline.analytic import ShapeSpec, analytic_cost  # noqa: E402
-from repro_torch.serving import ServingConfig, debug_snapshot  # noqa: E402
+from repro_torch.serving import ServingConfig, debug_snapshot, drift_report  # noqa: E402
+from repro_torch.serving.resources import GPUPool  # noqa: E402
 from repro_torch.sim import runner  # noqa: E402
 from repro_torch.sim.multiclient import run_multiclient  # noqa: E402
 from repro_torch.sim.seg_world import SegWorld, phi_pixel_loss, pretrain_student  # noqa: E402
@@ -335,6 +354,9 @@ PRETRAIN_STEPS, TEACHER_STEPS = 120, 150
 # slot bound to the card, fair policy, up to 8 sessions per fused group;
 # everything else (stationary_frac 0.3, eval_stride 6, LinkSpec()) default
 SERVE_CLIENTS, SERVE_S, SERVE_FUSE = 8, 60.0, 8
+# sharded execution: pool slots, sessions per slot, rounds (the main path's
+# student, frames, batch, K and gamma)
+SHARD_SLOTS, SHARD_B, SHARD_ROUNDS = 4, 2, 3
 # what follows a traced replay inside its trace (exec_shape_check)
 PAD_LAUNCHES, TRACE_PAUSE_S = 512, 0.2
 
@@ -908,12 +930,14 @@ def exec_shape_check(dev, sessions):
       stepped by `masked_adam_flat`, against 3 calls of the tree step
       `masked_adam_stacked`; every output bit for bit.
     * One whole phase (K=20 replay batches from a separate RNG) through
-      the eager loop twice and the CUDA graph twice: whether two eager runs
-      agree bit for bit, and the graph's distance from the loop (params'
-      fp16 ULPs, and the next phase's top-k masks of u), held to 3x the
-      run-to-run spread. The second replay is traced with `torch.profiler`:
-      its masked_adam_kernel launches must be K, the count K1's counter
-      adds per replay."""
+      the eager loop twice and the CUDA graph twice: the student's
+      loss/grad is deterministic on the card (ROADMAP F13), so two eager
+      runs, two replays and the graph against the loop must agree bit for
+      bit (distance 0: params' fp16 ULPs, and the next phase's top-k masks
+      of u), and the vmapped loss/grad twice on the same inputs must give
+      the same gradients. The second replay is traced with
+      `torch.profiler`: its masked_adam_kernel launches must be K, the
+      count K1's counter adds per replay."""
     cfg = sessions[0].cfg
     params = stack_trees([s.params for s in sessions])
     opt = stack_trees([s.opt_state for s in sessions])
@@ -1021,16 +1045,12 @@ def exec_shape_check(dev, sessions):
     res["k1_kernels_per_replay_traced"] = traced
     print(f"graph vs loop, one phase at ({B}, {cfg.k_iters}) on the run's state: "
           f"{json.dumps(res)}")
-    e, r, g = res["loop2_vs_loop"], res["graph2_vs_graph"], res["graph_vs_loop"]
-    check(g["bitwise"] or not e["bitwise"],
-          "the eager loop is deterministic but the graph differs from it")
-    # where the eager loop is not deterministic, the graph must stay within
-    # 3x the larger run-to-run spread, two eager runs' or two replays'
-    # (PERF.md §6: within 1.2x of the eager one on the H100)
-    for x in ("params_share_over_1_ulp", "next_mask_share_differing"):
-        check(g[x] <= 3 * max(e[x], r[x]),
-              f"graph vs loop {x} {g[x]} beyond 3x the run-to-run spread "
-              f"(eager {e[x]}, replays {r[x]})")
+    check(grad_leaves_differing == 0, "the vmapped loss/grad is not repeatable")
+    for pair in ("loop2_vs_loop", "graph_vs_loop", "graph2_vs_graph"):
+        d = res[pair]
+        check(d["bitwise"] and d["params_max_ulps"] == 0
+              and d["next_mask_share_differing"] == 0.0,
+              f"{pair}: the fused phase is not repeatable bit for bit: {json.dumps(d)}")
     return res
 
 
@@ -1423,6 +1443,156 @@ def serving_path(dev, pre):
                                      "modeled_steady_s", "drift_ratio")}
                for k, e in drift.items()})))
     return r, launches, groups
+
+
+# ---------------------------------------------------------------------------
+# sharded execution: the pool's slots on the host's cards
+# ---------------------------------------------------------------------------
+
+
+def sharded_phase(dev) -> dict:
+    """Three identical fleets of SHARD_SLOTS groups of SHARD_B width-4.0
+    sessions through SHARD_ROUNDS rounds in the ``graph`` shape: per-group
+    fused, sharded over no device (the serial baseline) and sharded over
+    the pool's cards. Checks them equal bit for bit, the counters, K1/K2
+    launches, the per-device drift report and the current device; times
+    the last round's dispatch windows and whole calls."""
+    t_phase = time.perf_counter()
+    cur0 = torch.cuda.current_device()
+    seg = SegConfig(n_classes=5, width=WIDTH)
+    ams = AMSConfig(batch_size=8, k_iters=20, gamma=FRAC)
+    n = SHARD_SLOTS * SHARD_B
+    worlds = [SegWorld.make(VideoConfig(height=HW, width=HW, seed=s), seg) for s in range(n)]
+    p0 = make_student(seg, seed=0, device=dev)
+    fleets = {name: [AMSSession(Task(loss_and_grad=w.loss_and_grad, teacher=None,
+                                     phi_loss=phi_pixel_loss), ams, p0, seed=i)
+                     for i, w in enumerate(worlds)]
+              for name in ("fused", "serial", "sharded")}
+    pool = GPUPool(n_gpus=SHARD_SLOTS, device_backend="torch")
+    devices = pool.torch_devices()
+    distinct = min(SHARD_SLOTS, torch.cuda.device_count())
+    check(pool.distinct_torch_devices == distinct,
+          f"the pool binds {pool.distinct_torch_devices} distinct cards, want {distinct}")
+    fps = worlds[0].video.cfg.fps
+
+    def groups(fleet):
+        return [fleet[g * SHARD_B:(g + 1) * SHARD_B] for g in range(SHARD_SLOTS)]
+
+    def run(name, t_now):
+        torch.cuda.synchronize()
+        snap, t0 = timing.snapshot(), time.perf_counter()
+        if name == "fused":
+            out = [d for g in groups(fleets[name])
+                   for d in train_phases_fused(g, t_now, force_stack=True)]
+        else:
+            out = [d for g in train_phases_sharded(
+                groups(fleets[name]), t_now,
+                devices=[None] * SHARD_SLOTS if name == "serial" else devices) for d in g]
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, timing.delta(snap)
+
+    batched.cache_clear()
+    batched.sharded_reset()
+    batched.set_exec_mode("graph")
+    was_timing = timing.enabled()
+    exec0 = batched.exec_info()
+    zero_launches()
+    try:
+        calls, windows, stats = {}, {}, {}
+        for rnd in range(SHARD_ROUNDS):
+            idx = [int((10 * rnd + j) * fps) for j in range(10)]
+            batches = [(np.stack([w.video.frame(i)[0] for i in idx]),
+                        np.stack([w.teacher.label(i) for i in idx])) for w in worlds]
+            for fleet in fleets.values():
+                for s, (f, lab) in zip(fleet, batches):
+                    s.receive_labeled(f, lab, 10.0 * rnd + 9.0)
+            last = rnd == SHARD_ROUNDS - 1
+            timing.set_enabled(last)
+            t_now = 10.0 * (rnd + 1)
+            outs = {}
+            for name in fleets:
+                if name == "serial":  # the drift report reads both sharded calls
+                    snap = timing.snapshot()
+                outs[name], calls[name], stats[name] = run(name, t_now)
+            round_stats = timing.delta(snap)
+            ref = outs["fused"]
+            check(all(d is not None for d in ref), f"round {rnd}: every session trained")
+            for name in ("serial", "sharded"):
+                check(all(a.packed_mask == b.packed_mask and a.values.tobytes()
+                          == b.values.tobytes() and a.total_bytes == b.total_bytes
+                          for a, b in zip(ref, outs[name])),
+                      f"round {rnd}: {name} wire deltas differ from per-group fused")
+                check(all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                          for a, b in zip(fleets["fused"], fleets[name])
+                          for x, y in zip(tree.leaves(a.params), tree.leaves(b.params))),
+                      f"round {rnd}: {name} committed params differ from per-group fused")
+            print(f"sharded round {rnd}: wire masks, bytes and committed params equal bit "
+                  f"for bit across the three fleets; delta bytes "
+                  f"{[d.total_bytes for d in ref]}; whole calls (s) "
+                  + json.dumps({k: round(v, 4) for k, v in calls.items()}))
+    finally:
+        timing.set_enabled(was_timing)
+        batched.set_exec_mode("auto")
+    launches = read_launches()
+    ran = {k: v - exec0[k] for k, v in batched.exec_info().items()}
+    info = batched.sharded_info()
+    batched.cache_clear()
+    torch.cuda.empty_cache()
+    replays = SHARD_ROUNDS * len(fleets) * SHARD_SLOTS
+    captures = len(set(devices) | {dev})
+    want = {"K1": ams.k_iters * replays + captures,
+            "K2": (SHARD_ROUNDS - 1) * len(fleets) * SHARD_SLOTS}
+    print(f"sharded: {SHARD_SLOTS} slots x {SHARD_B} sessions on {[str(d) for d in devices]} "
+          f"({distinct} distinct cards); exec runs {ran}; launches {launches}, want {want}; "
+          f"sharded_info {info}")
+    check(ran == {"loop_runs": 0, "graph_captures": captures, "graph_replays": replays,
+                  "warm_iters": captures}, f"sharded: exec runs {ran}")
+    check(launches["K1"] == ams.k_iters * ran["graph_replays"] + ran["warm_iters"]
+          and launches == want, f"sharded: launches {launches}, want {want}")
+    check(info == {"batches": 2 * SHARD_ROUNDS, "groups": 2 * SHARD_ROUNDS * SHARD_SLOTS,
+                   "sessions": 2 * SHARD_ROUNDS * n,
+                   "dispatch_launches": 2 * SHARD_ROUNDS * SHARD_SLOTS,
+                   "spmd_launches": 0, "distinct_devices": distinct},
+          f"sharded_info {info}")
+    key = ("train_sharded", (SHARD_SLOTS, SHARD_B, ams.k_iters))
+    for name in ("serial", "sharded"):
+        e = stats[name].get(key)
+        check(e is not None and e["calls"] == 1 and e["first_calls"] == 0,
+              f"sharded: the {name} round's train_sharded record {e}")
+        windows[name] = e["steady_s"]
+    drift = drift_report(GPUCostModel(), round_stats)
+    per = drift.get("sharded_device", {}).get("per_device", {})
+    check(sorted(per) == list(range(SHARD_SLOTS)) and all(
+        e["steady_calls"] >= 1 and e["drift_ratio"] is not None for e in per.values()),
+        f"sharded: per-device drift {per}")
+    check(drift.get("train_sharded", {}).get("steady_calls", 0) >= 1,
+          "sharded: a steady train_sharded batch in the drift report")
+    for slot, e in sorted(per.items()):
+        print(f"sharded drift slot {slot}: {e['steady_calls']} steady calls, measured "
+              f"{e['measured_steady_s']:.4f} s vs modeled {e['modeled_steady_s']:.4f} s, "
+              f"drift_ratio {e['drift_ratio']:.3f}")
+    ratio = windows["serial"] / windows["sharded"]
+    if distinct >= 2:
+        check(ratio > 1.0, f"sharded: {distinct} cards did not beat one: window ratio {ratio}")
+    sustained = int(n * ams.t_update / windows["sharded"])
+    check(torch.cuda.current_device() == cur0,
+          f"sharded: current device {torch.cuda.current_device()}, was {cur0}")
+    secs = time.perf_counter() - t_phase
+    print(f"sharded: the last round's dispatch window (end of staging to the last "
+          f"completion) serial {windows['serial']:.4f} s, sharded {windows['sharded']:.4f} s, "
+          f"ratio {ratio:.3f}; whole calls serial {calls['serial']:.4f} s, sharded "
+          f"{calls['sharded']:.4f} s, per-group fused {calls['fused']:.4f} s; sessions "
+          f"sustained {sustained} ({n} sessions a {windows['sharded']:.4f} s round against "
+          f"t_update {ams.t_update} s); current device {torch.cuda.current_device()} "
+          f"before and after; the phase took {secs:.1f} s")
+    out = dict(windows=windows, calls=calls, ratio=ratio, sustained=sustained,
+               launches=launches, exec_runs=ran, info=info, distinct=distinct,
+               per_device={k: {x: e[x] for x in ("steady_calls", "measured_steady_s",
+                                                  "modeled_steady_s", "drift_ratio")}
+                           for k, e in per.items()},
+               seconds=secs)
+    print("SHARDED " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2948,10 +3118,12 @@ def main() -> None:
     del ams_session
     torch.cuda.empty_cache()
 
-    # 6. the serving engine on the schemes phase's pretrained student
+    # 6. the serving engine on the schemes phase's pretrained student, then
+    # sharded execution over the pool's slots
     serving, serving_launches, serving_groups = serving_path(dev, pre)
     del pre
     torch.cuda.empty_cache()
+    sharded = sharded_phase(dev)
 
     # 7. the LLM serving path, then K3 and K4 on its own data; the fused
     # phase's graphs and their memory pools go first
@@ -3048,6 +3220,7 @@ def main() -> None:
              runner_launches=sum(v["K1"] for v in runner_launches.values()),
              runner_launches_by_run={k: v["K1"] for k, v in runner_launches.items()},
              serving_launches=serving_launches["K1"],
+             sharded_launches=sharded["launches"]["K1"],
              max_abs_err=max(k1["err"], err1, err1_b1),
              ms=k1["ms"], kernel_ms=k1["ms"], call_ms=k1["call_ms"],
              plain_ms=k1["plain_ms"],
@@ -3090,6 +3263,7 @@ def main() -> None:
              runner_launches=sum(v["K2"] for v in runner_launches.values()),
              runner_launches_by_run={k: v["K2"] for k, v in runner_launches.items()},
              serving_launches=serving_launches["K2"],
+             sharded_launches=sharded["launches"]["K2"],
              max_abs_err=max(k2["err"], err2, err2_b1), ms=k2["ms"], kernel_ms=k2["ms"],
              call_ms=k2["call_ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"], bound_by="bytes",
              library_ms=k2["library_ms"], blocks=k2["blocks"],
@@ -3212,6 +3386,10 @@ def main() -> None:
     print(f"serving summary: groups by B {serving_groups}, mean mIoU "
           f"{serving['mean_miou']:.4f}, drift_ratio train_fused "
           f"{serving['observability']['drift'].get('train_fused', {}).get('drift_ratio')}")
+    print(f"sharded summary: dispatch window serial {sharded['windows']['serial']:.4f} s, "
+          f"sharded {sharded['windows']['sharded']:.4f} s (ratio {sharded['ratio']:.3f}, "
+          f"{sharded['distinct']} distinct cards); K1 {sharded['launches']['K1']}, K2 "
+          f"{sharded['launches']['K2']}; the phase took {sharded['seconds']:.1f} s")
     print(f"LLM summary: prefill {llm['prefill_ms']:.1f} ms (the previous slice's runs "
           f"on an H100 80GB HBM3 at 700 W: 678.6-686.4; cold "
           f"{llm_cold['prefill_ms']:.1f}), decode {llm['decode_ms_per_token']:.3f} "

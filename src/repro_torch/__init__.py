@@ -63,9 +63,11 @@ launcher; and the dry run (``launch/dryrun.py``, ``launch/input_specs.py``,
 ``roofline/analysis.trace_facts``), which traces every step on the meta
 device.
 
-Not ported yet: sharded execution on several cards (the session mesh,
-``launch/host_mesh.py``) and the collective-bytes reader of
-``roofline/analysis.py``.
+Ported last: sharded execution on several cards
+(``core.batched.train_phases_sharded``, the session mesh of
+``launch/mesh.py``, ``launch/host_mesh.py``).
+
+Not ported yet: the collective-bytes reader of ``roofline/analysis.py``.
 
 Entry points take ``device="cuda"`` by default and raise when there is
 no card; the CPU runs only when the caller passes ``device="cpu"``. The

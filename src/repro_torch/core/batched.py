@@ -46,6 +46,14 @@ the graph's memory before anything else runs.
 A singleton group runs the sequential `AMSSession._run_phase_prepared`
 loop, as in the JAX package.
 
+Sharded execution (`train_phases_sharded`): D co-resident groups, one per
+granted pool slot, each on its slot's card. Every group is staged first
+(stacked, placed, its selection run and its batches copied to its card),
+then every group is launched, with nothing in between that waits for a
+card, and one waiter thread per group timestamps its own completion. On D
+cards the D lifecycles run at once; on one card they queue on it, and the
+results are the same bits either way.
+
 Observability: `update_pipeline_info` counts the stacked selections and
 batched encodes and the sessions they covered, `exec_info` the loop runs,
 graph captures, graph replays and warm-up iterations, and the K
@@ -59,6 +67,7 @@ from __future__ import annotations
 import functools
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Hashable
 
 import numpy as np
@@ -68,7 +77,7 @@ from repro_torch import tree
 from repro_torch.core import selection, timing
 from repro_torch.core.delta import encode_delta_stack
 from repro_torch.core.masked_adam import momentum_update
-from repro_torch.device import host_to_device
+from repro_torch.device import host_to_device, resolve_device
 from repro_torch.kernels import stacking
 from repro_torch.kernels.masked_adam import ops as adam_ops
 
@@ -263,6 +272,16 @@ class _GraphPhase:
             adam_ops.launches = n0
         self.graph = graph
         _EXEC_STATS["graph_captures"] += 1
+
+    def capture(self, params, opt, mask, frames, labels) -> None:
+        """Capture the graph now if it has none, without replaying it:
+        the warm-up and the capture wait for the card, so a caller that
+        must not wait between launches captures before them."""
+        if self.graph is None:
+            dev = frames.device
+            with torch.cuda.device(dev):
+                self._capture(self.phase.prepare(params, opt, mask, frames,
+                                                 labels), dev)
 
     def __call__(self, params, opt, mask, frames, labels):
         inputs = self.phase.prepare(params, opt, mask, frames, labels)
@@ -487,6 +506,39 @@ def train_phases_fused(sessions: list, t_now: float,
     return [results[i] for i in range(len(sessions))]
 
 
+def _runner(s0, args):
+    """The cached phase runner (`fused_phase_fn`) of a staged group."""
+    cfg = s0.cfg
+    return fused_phase_fn(
+        s0.task.loss_and_grad, struct=tree.struct(args), k_iters=cfg.k_iters,
+        optimizer=cfg.optimizer, lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+        momentum=cfg.momentum, device=args[3].device)
+
+
+def _stage(members, device=None):
+    """The first half of a stacked launch: stack the group's trees, place
+    them on ``device`` (None: the sessions' own device), select its masks
+    there (`_stacked_masks`) and copy its replay batches there.
+
+    Returns ``(phase, args, first)``: the runner of its compile key, the
+    runner's arguments ``(params, opt, mask, frames, labels)`` and whether
+    the lookup missed the cache."""
+    ss = [m[1] for m in members]
+    dev = ss[0].device if device is None else device
+    params = stack_trees([s.params for s in ss])
+    opt = stack_trees([s.opt_state for s in ss])
+    if device is not None:
+        params, opt = _to(params, device), _to(opt, device)
+    mask = _stacked_masks(members, device)
+    # batches: per-session (K, batch, ...) -> (K, B, batch, ...)
+    frames = host_to_device(np.stack([m[3] for m in members], axis=1), dev)
+    labels = host_to_device(np.stack([m[4] for m in members], axis=1), dev)
+    args = (params, opt, mask, frames, labels)
+    miss0 = _MISSES
+    phase = _runner(ss[0], args)
+    return phase, args, _MISSES > miss0
+
+
 def _launch_stacked(members, device=None):
     """Stack one group and run its K fused train iterations through the
     cached phase runner of its compile key (`fused_phase_fn`).
@@ -496,38 +548,195 @@ def _launch_stacked(members, device=None):
     (after the stacking and the host-to-device copy) is recorded as stage
     ``train_fused`` under key ``(B, K)``, in the first-call bucket when it
     missed the cache."""
-    ss = [m[1] for m in members]
-    s0 = ss[0]
-    cfg = s0.cfg
-    dev = s0.device if device is None else device
-    params = stack_trees([s.params for s in ss])
-    opt = stack_trees([s.opt_state for s in ss])
-    if device is not None:
-        params, opt = _to(params, device), _to(opt, device)
-    mask = _stacked_masks(members, device)
-    # batches: per-session (K, batch, ...) -> (K, B, batch, ...)
-    frames = host_to_device(np.stack([m[3] for m in members], axis=1), dev)
-    labels = host_to_device(np.stack([m[4] for m in members], axis=1), dev)
-    miss0 = _MISSES
-    phase = fused_phase_fn(
-        s0.task.loss_and_grad,
-        struct=tree.struct((params, opt, mask, frames, labels)),
-        k_iters=cfg.k_iters, optimizer=cfg.optimizer, lr=cfg.lr, b1=cfg.b1,
-        b2=cfg.b2, eps=cfg.eps, momentum=cfg.momentum, device=frames.device)
+    phase, args, first = _stage(members, device)
+    cfg = members[0][1].cfg
     record = timing.enabled()
     if record:
-        timing.block((params, opt, mask, frames, labels))
+        timing.block(args)
         t0 = time.perf_counter()
-    params, opt, u, losses = phase(params, opt, mask, frames, labels)
+    params, opt, u, losses = phase(*args)
     if record:
         timing.block((params, opt, u, losses))
         # nbytes: the optimizer update's traffic only (33 B per coordinate
         # and iteration, forward/backward excluded), as in the JAX package
         timing.record("train_fused", time.perf_counter() - t0,
-                      first=_MISSES > miss0, key=(len(members), cfg.k_iters),
-                      nbytes=(len(members) * cfg.k_iters * 33
-                              * selection.tree_size(s0.params)))
-    return params, opt, u, losses, mask
+                      first=first, key=(len(members), cfg.k_iters),
+                      nbytes=_adam_nbytes(members))
+    return params, opt, u, losses, args[2]
+
+
+def _adam_nbytes(members) -> int:
+    s0 = members[0][1]
+    return len(members) * s0.cfg.k_iters * 33 * selection.tree_size(s0.params)
+
+
+# ---------------------------------------------------------------------------
+# sharded execution: D co-resident groups on D pool cards
+# ---------------------------------------------------------------------------
+
+_SHARD_STATS = {"batches": 0, "groups": 0, "sessions": 0,
+                "dispatch_launches": 0, "spmd_launches": 0,
+                "distinct_devices": 0}
+
+
+def sharded_info() -> dict:
+    """Counters of sharded batches: batches, groups and sessions covered,
+    per-group launches (``dispatch_launches``; ``spmd_launches`` stays 0:
+    the JAX package's one-launch ``shard_map`` path has no counterpart),
+    and the widest fan-out over distinct devices achieved (1 when nothing
+    was placed or every group shared one device)."""
+    return dict(_SHARD_STATS)
+
+
+def sharded_reset() -> None:
+    for k in _SHARD_STATS:
+        _SHARD_STATS[k] = 0
+
+
+def _settle(phase, s0, args):
+    """Do now what a runner's first launch would do that waits for the
+    card: an ``auto`` race (run on this batch, its output dropped, its
+    winner cached) and a graph's capture. Returns the runner to launch."""
+    if not isinstance(phase, (_Phase, _GraphPhase)):  # an auto race
+        phase(*args)
+        phase = _runner(s0, args)
+    if isinstance(phase, _GraphPhase):
+        phase.capture(*args)
+    return phase
+
+
+def _completion(done):
+    """A group's completion time: a CPU group's was taken at its launch;
+    a CUDA group's is when its event fires (`Event.synchronize` releases
+    the GIL, so D waiters wait at once)."""
+    if isinstance(done, float):
+        return done
+    done.synchronize()
+    return time.perf_counter()
+
+
+def _check_device(device):
+    if device is None:
+        return None
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None \
+            and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"{dev} requested but the host has "
+                           f"{torch.cuda.device_count()} CUDA cards")
+    return dev
+
+
+def train_phases_sharded(session_groups: list, t_now: float, *,
+                         devices: list) -> list:
+    """Run D co-resident groups' fused lifecycles on D pool devices at once.
+
+    ``session_groups[g]`` is the member list of one granted pool slot (the
+    sessions a fused grant would stack); ``devices[g]`` is that slot's
+    binding, a ``torch.device`` (`GPUPool.torch_devices()` under
+    ``device_backend="torch"``; the CPU is accepted too) or None, which
+    runs the group on its sessions' own device: all-None is the serial
+    fused baseline. A CUDA device the host lacks raises; nothing falls
+    back to the CPU.
+
+    Host-side phase preparation runs in input order, the same RNG use as
+    ``train_phases_fused`` over the concatenation. Then every group is
+    staged: stacked, placed on its device, its deferred gradient-guided
+    selections run there as one stacked launch, its batches copied there,
+    and whatever its runner's first launch would wait for done now (an
+    ``auto`` race, a graph's capture). Then every group is launched, with
+    nothing in between that waits for a card (a blocking copy from the
+    sessions' card would wait for the work already queued there), and one
+    event recorded per group on its card's stream; one waiter thread per
+    group timestamps its completion. Wire deltas and commits follow in
+    group order, one batched encode per group. Each group must share ONE
+    compile key; mixed groups raise. A session with nothing to train gets
+    None in its slot.
+
+    The JAX package's ``spmd=True`` (one ``shard_map`` launch across the
+    devices) has no counterpart: a PyTorch process has no launch that
+    spans cards.
+
+    With timing on, each group lands as stage ``"sharded_device"`` under
+    key ``(slot, B, K)`` and the batch as ``"train_sharded"`` under ``(D,
+    B, K)`` (``(D,)`` when the groups differ), both measured from the end
+    of staging; `serving.obs.drift_report` prices both, per device too.
+
+    Returns a list of per-group result lists (a delta or None per
+    session, ``train_phases_fused`` semantics)."""
+    if len(devices) != len(session_groups):
+        raise ValueError(
+            f"{len(session_groups)} session groups need as many device "
+            f"bindings, got {len(devices)}")
+    devices = [_check_device(d) for d in devices]
+    results_per: list[dict] = [{} for _ in session_groups]
+    prepped = []
+    for gi, sessions in enumerate(session_groups):
+        members, key0 = [], None
+        for i, s in enumerate(sessions):
+            prep = s._prepare_phase_deferred(t_now)
+            if prep is None:
+                results_per[gi][i] = None
+                continue
+            mask, frames, labels = prep
+            k = _group_key(s, mask, frames, labels)
+            if key0 is None:
+                key0 = k
+            elif k != key0:
+                raise ValueError(
+                    "a sharded group must share ONE compile key (the "
+                    "engine fuses only same-key sessions onto a device); "
+                    "split mixed sessions across slots")
+            members.append((i, s, mask, frames, labels))
+        if members:
+            prepped.append((gi, members))
+
+    if prepped:
+        _SHARD_STATS["batches"] += 1
+        _SHARD_STATS["groups"] += len(prepped)
+        _SHARD_STATS["sessions"] += sum(len(m) for _, m in prepped)
+        _SHARD_STATS["distinct_devices"] = max(
+            _SHARD_STATS["distinct_devices"],
+            len({devices[gi] for gi, _ in prepped
+                 if devices[gi] is not None}) or 1)
+
+    staged = []
+    for gi, members in prepped:
+        phase, args, first = _stage(members, devices[gi])
+        staged.append((gi, members, _settle(phase, members[0][1], args), args,
+                       first))
+
+    t0 = time.perf_counter()  # staging done: the dispatch window opens
+    launches = []
+    for gi, members, phase, args, first in staged:
+        out = phase(*args) + (args[2],)
+        dev = args[3].device
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+        else:  # the CPU ran the group before returning
+            done = time.perf_counter()
+        launches.append((gi, members, out, first, done))
+        _SHARD_STATS["dispatch_launches"] += 1
+    if len(launches) > 1:
+        with ThreadPoolExecutor(max_workers=len(launches)) as ex:
+            done = list(ex.map(_completion, [l[4] for l in launches]))
+    else:
+        done = [_completion(l[4]) for l in launches]
+    if launches and timing.enabled():
+        for (gi, members, _, first, _), t_done in zip(launches, done):
+            timing.record("sharded_device", t_done - t0, first=first,
+                          key=(gi, len(members), members[0][1].cfg.k_iters),
+                          nbytes=_adam_nbytes(members))
+        bks = {(len(m), m[0][1].cfg.k_iters) for _, m, _, _, _ in launches}
+        uniform = bks.pop() if len(bks) == 1 else None
+        timing.record("train_sharded", max(done) - t0,
+                      first=any(l[3] for l in launches),
+                      key=(len(launches),) + (uniform or ()),
+                      nbytes=sum(_adam_nbytes(m) for _, m, _, _, _ in launches))
+    for gi, members, out, _, _ in launches:
+        _commit_stacked(members, t_now, out, results_per[gi])
+    return [[results_per[gi].get(i) for i in range(len(sg))]
+            for gi, sg in enumerate(session_groups)]
 
 
 def _commit_stacked(members, t_now, out, results) -> None:

@@ -101,6 +101,7 @@
 // wgmma, C7513; with the per-step S sums there are no registers left for
 // it at hd 256). Not done yet: a persistent grid, clusters with TMA
 // multicast of K and V for the q heads of a KV group, fp8.
+#include "device_guard.cuh"
 #include "hopper_tma_wgmma.cuh"
 
 namespace {
@@ -719,7 +720,8 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
                              const long long* strides, int causal, int window,
                              float softcap, float scale, void* lse, int device,
                              void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Sq == 0 || B == 0) return 0;
   if (hd != 64 && hd != 112 && hd != 128 && hd != 256) return cudaErrorInvalidValue;
@@ -766,7 +768,8 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o
                             const long long* strides, int causal, int window,
                             float softcap, float scale, void* lse, int device,
                             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Sq == 0 || B == 0) return 0;
   const long long* st = strides;

@@ -101,6 +101,7 @@
 //   flash_bwd_dq_kernel and flash_bwd_dkdv_kernel on the CUDA cores (first
 //   below): 64 resident rows, 32 streamed, S and dP recomputed in both
 //   passes, everything in float32 with fma chains.
+#include "device_guard.cuh"
 #include "hopper_tma_wgmma.cuh"
 
 namespace {
@@ -1139,7 +1140,8 @@ int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                         int B, int Sq, int Skv, int KV, int G, const long long* strides,
                         int causal, int window, float softcap, float scale, int device,
                         void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

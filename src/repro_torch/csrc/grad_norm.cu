@@ -31,6 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "vec8.cuh"
 
 namespace {
@@ -129,7 +130,8 @@ int grad_norm(const void* const* ptrs, const long long* vecs, const int* dts, in
               void* stream) {
   if (count < 1 || count > kMaxBufs || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   Bufs b{};
   for (int j = 0; j < count; ++j) {

@@ -46,6 +46,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "vec8.cuh"
 
 namespace {
@@ -132,7 +133,8 @@ int masked_adam_3d(const void* p, int p_dt, void* g, int g_dt,
                    void* stream) {
   if (threads < 32 || threads > kMaxThreads || threads % 32 || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   Args a{p, g, m, v, static_cast<const uint8_t*>(mask),
          static_cast<const float*>(bc), static_cast<const float*>(gn),

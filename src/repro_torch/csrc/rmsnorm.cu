@@ -47,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 enum Dtype : int { kF32 = 0, kBF16 = 1 };
@@ -415,7 +417,8 @@ extern "C" {
 // Returns a negative value if the device cannot be queried.
 int rms_norm_variant(const void* x, int x_dt, const void* w, int w_dt,
                      const void* out, long long R, long long d, int device) {
-  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return -1;
   return plan(x, x_dt, w, w_dt, out, R, d, device).variant;
 }
 
@@ -427,7 +430,8 @@ int rms_norm_variant(const void* x, int x_dt, const void* w, int w_dt,
 // cudaError_t (0 on success).
 int rms_norm(const void* x, int x_dt, const void* w, int w_dt, void* out,
              long long R, long long d, float eps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p = plan(x, x_dt, w, w_dt, out, R, d, device);

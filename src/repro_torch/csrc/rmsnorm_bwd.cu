@@ -47,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -367,7 +369,8 @@ int rms_norm_bwd_blocks(const void* x, int x_dt, const void* dy, const void* dx,
 int rms_norm_bwd(const void* x, int x_dt, const void* w, int w_dt, const void* dy,
                  void* dx, void* dw, void* part, long long rows, int d, float eps,
                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows == 0 || d == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

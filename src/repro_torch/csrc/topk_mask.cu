@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -242,7 +244,8 @@ int topk_blocks_per_session(long long n, int B, int device) {
 int topk_threshold_bits(const void* bits, long long n, long long k, int B,
                         const int* digit_bits, int passes, void* scratch,
                         void* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   Pass ps[kMaxPasses];
   const long long words = layout(digit_bits, passes, ps);

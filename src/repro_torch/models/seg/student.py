@@ -21,12 +21,19 @@ them:
   (``torch.clamp``'s is 1, ``F.relu6``'s 0). At batch 1 the context
   branch normalises to exactly 0, so its output is its bias, zero at
   init: it sits on the kink.
+* the bilinear upsample of the logits is two products with fixed
+  interpolation-weight matrices, one per spatial axis (`linear_resize`),
+  the weights ``jax.image.resize`` builds for a linear resize. Forward
+  and backward are then matrix products in a fixed order, so the
+  student's gradients are the same bits every run on the card, where
+  ``F.interpolate``'s CUDA backward accumulates with atomics.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -135,6 +142,50 @@ class _ReLU6(torch.autograd.Function):
         return torch.lerp(strict, closed, 0.5)
 
 
+def _resize_weights_f64(n_in: int, n_out: int) -> np.ndarray:
+    """``(n_out, n_in)`` float64 weights of a linear resize along one
+    axis, as ``jax.image.resize(..., "linear")`` computes them: half-pixel
+    centres, the triangle kernel (widened by the scale when shrinking, its
+    antialias), each output's weights normalised to sum 1, and outputs
+    whose centre falls outside the input zeroed."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(sample[None, :] - np.arange(n_in)[:, None])
+                   / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).T.copy()
+
+
+_RESIZE_WEIGHTS: dict = {}
+
+
+def _resize_weights(n_in: int, n_out: int, dtype, device):
+    """`_resize_weights_f64` in ``dtype`` on ``device``, made once per
+    key: a phase's CUDA graph captures its first use after the eager
+    warm-up has made it, so no capture copies from the host."""
+    key = (n_in, n_out, dtype, device)
+    w = _RESIZE_WEIGHTS.get(key)
+    if w is None:
+        w = _RESIZE_WEIGHTS[key] = torch.from_numpy(
+            _resize_weights_f64(n_in, n_out)).to(device=device, dtype=dtype)
+    return w
+
+
+def linear_resize(x, size: tuple[int, int]):
+    """Bilinear resize of the last two axes of ``x`` (..., h, w) to
+    ``size``: ``W_h @ x @ W_w^T`` with the weight matrices of
+    `_resize_weights_f64`, the counterpart of ``jax.image.resize(...,
+    "bilinear")``. Deterministic on the card, forward and backward."""
+    (h, w), (H, W) = x.shape[-2:], size
+    wh = _resize_weights(h, H, x.dtype, x.device)
+    ww = _resize_weights(w, W, x.dtype, x.device)
+    return torch.matmul(torch.matmul(wh, x), ww.T)
+
+
 def _bn_act(x, bn, act=True):
     # folded-norm affine (no running stats: online setting, tiny batches)
     mu = x.mean(dim=(0, 2, 3), keepdim=True)
@@ -161,9 +212,7 @@ def seg_forward(cfg: SegConfig, params: dict, img):
     ctx = _bn_act(_conv(ctx, params["aspp"]["ctx"]["w"]), params["aspp"]["ctx"]["bn"])
     h = loc + ctx
     logits = _conv(h, params["classifier"]["w"]) + params["classifier"]["b"].view(1, -1, 1, 1)
-    logits = F.interpolate(logits, size=(H, W), mode="bilinear",
-                           align_corners=False)
-    return logits.permute(0, 2, 3, 1)
+    return linear_resize(logits, (H, W)).permute(0, 2, 3, 1)
 
 
 def seg_loss(cfg: SegConfig, params: dict, img, labels):

@@ -14,8 +14,8 @@ function on meta tensors (`torch.device("meta")`: shapes and dtypes, no
 storage, no card) under `MetaTrace` and reads the argument bytes, the
 peak of the storage bytes live at once, and the FLOPs of the products it
 ran. The JAX
-package's `collective_bytes_from_hlo` has no counterpart until the port
-runs sharded (ROADMAP §1 item 5).
+package's `collective_bytes_from_hlo` has no counterpart yet: it is the
+next and last module to port (ROADMAP §1 item 5).
 """
 from __future__ import annotations
 

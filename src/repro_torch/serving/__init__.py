@@ -113,6 +113,25 @@ runs on the granted slot's card (`session.train_many` ->
 `core.batched.train_phases_fused(device=...)`). Without CUDA it raises:
 there is no CPU binding. ``"modeled"``, the default, binds nothing, imports
 nothing and leaves every tensor where its session put it.
+
+Sharded execution (`launch.host_mesh` + `core.batched`): the pool's
+modeled per-device parallelism runs on real cards.
+``core.batched.train_phases_sharded(groups, t, devices=pool.torch_devices())``
+runs D co-resident groups, one per pool slot, each on its slot's card:
+every group staged first (stacked, placed, its selection run there), then
+every group launched with nothing in between that waits for a card, each
+completion timestamped by its own waiter thread. It is byte-identical to
+the serial fused path (``devices=[None] * D``, or per-group
+``train_phases_fused``). `launch.host_mesh.host_devices(n)` raises when
+the host has fewer than ``n`` cards, so a serial run cannot pass for a
+parallel one; a pool wider than the host maps several slots to one card
+(``GPUPool.distinct_torch_devices`` says how many are real). Per-device
+measured-vs-modeled seconds surface in
+``obs.drift_report()["sharded_device"]["per_device"]``. The gate is
+``chip_smoke.py``'s sharded phase on the card (``sharded_phase``: three
+fleets equal bit for bit, the counters and K1/K2 launches exact, the
+drift report per slot); ``tests/test_torch_sharded.py`` holds the path
+against the JAX package's on the CPU.
 """
 from repro_torch.serving.engine import ServingConfig, ServingEngine
 from repro_torch.serving.events import Event, EventQueue

@@ -570,6 +570,28 @@ def _modeled_stage_s(cost, stage: str, key: tuple, nbytes: int,
         return cost.delta_comp_s(nbytes) * blend
     if stage == "encode_solo":
         return cost.delta_comp_s(nbytes)
+    if stage == "sharded_device":
+        # one pool slot's lifecycle in a sharded batch
+        # (core.batched.train_phases_sharded), measured until this card's
+        # own completion: the stacked selection's share plus the fused
+        # train launch
+        _slot, b, k = key
+        return calls * (cost.update_setup_s
+                        + cost.select_s * (1 + cost.update_discount
+                                           * (b - 1))
+                        + cost.train_batch_s(b, k))
+    if stage == "train_sharded":
+        # the whole batch: D uniform lifecycles running at once are priced
+        # at ONE lifecycle, which the measured time approaches only on D
+        # distinct cards. A batch of unequal groups (key (D,)) is covered
+        # by its per-device stages instead.
+        if len(key) != 3:
+            return None
+        _d, b, k = key
+        return calls * (cost.update_setup_s
+                        + cost.select_s * (1 + cost.update_discount
+                                           * (b - 1))
+                        + cost.train_batch_s(b, k))
     return None
 
 
@@ -582,7 +604,13 @@ def drift_report(cost, stats: dict | None = None) -> dict:
     prices execution, not one-time set-up). ``drift_ratio`` > 1 means the
     real math is slower than modeled; None means the model prices the
     stage at zero (itself a finding: the stage costs real time the engine
-    charges nothing for)."""
+    charges nothing for).
+
+    Sharded batches (`core.batched.train_phases_sharded`) also get a
+    per-device comparison: the ``sharded_device`` entry carries a
+    ``per_device`` dict keyed by pool slot, each with its own measured and
+    modeled steady seconds and drift ratio: the audit that tells a pool of
+    real cards from modeled clocks ticking over one."""
     from repro_torch.core import timing as _timing
 
     stats = _timing.snapshot() if stats is None else stats
@@ -603,11 +631,20 @@ def drift_report(cost, stats: dict | None = None) -> dict:
         modeled_steady = (modeled * steady / v["calls"] if v["calls"] else 0.0)
         e["modeled_steady_s"] += modeled_steady
         e["nbytes"] += v["nbytes"]
+        if stage == "sharded_device":
+            d = e.setdefault("per_device", {}).setdefault(int(key[0]), {
+                "calls": 0, "steady_calls": 0,
+                "measured_steady_s": 0.0, "modeled_steady_s": 0.0})
+            d["calls"] += v["calls"]
+            d["steady_calls"] += steady
+            d["measured_steady_s"] += v["steady_s"]
+            d["modeled_steady_s"] += modeled_steady
     for e in out.values():
-        meas, mod = e["measured_steady_s"], e["modeled_steady_s"]
-        e["drift_ratio"] = (meas / mod) if mod > 0 else None
-        e["measured_per_call_s"] = (meas / e["steady_calls"]
-                                    if e["steady_calls"] else 0.0)
+        for d in (*e.get("per_device", {}).values(), e):
+            meas, mod = d["measured_steady_s"], d["modeled_steady_s"]
+            d["drift_ratio"] = (meas / mod) if mod > 0 else None
+            d["measured_per_call_s"] = (meas / d["steady_calls"]
+                                        if d["steady_calls"] else 0.0)
     return out
 
 
@@ -621,12 +658,12 @@ def debug_snapshot() -> dict:
     cost": the fused phase's runner cache and its auto exec-shape
     decisions (`core.batched.cache_info`, `auto_mode_info`; keys as
     ``"<backend>:<8-digit key hash>"``, as in the JAX package), the fused
-    update pipeline's counters (`update_pipeline_info`) and the stage
-    timing totals (`core.timing`). The JAX package's ``kernel_dispatch``,
-    ``stacked_select_cache``, ``stacked_encode_cache`` and ``sharded`` have
-    no counterpart here: a CUDA tensor always takes its kernel, selection
-    and encode build nothing per key, and sharded execution is not
-    ported."""
+    update pipeline's counters (`update_pipeline_info`), the sharded
+    batches' counters (`sharded_info`) and the stage timing totals
+    (`core.timing`). The JAX package's ``kernel_dispatch``,
+    ``stacked_select_cache`` and ``stacked_encode_cache`` have no
+    counterpart here: a CUDA tensor always takes its kernel, and selection
+    and encode build nothing per key."""
     from repro_torch.core import batched, timing
 
     return {
@@ -635,5 +672,6 @@ def debug_snapshot() -> dict:
                             for (backend, base), mode
                             in batched.auto_mode_info().items()},
         "update_pipeline": batched.update_pipeline_info(),
+        "sharded": batched.sharded_info(),
         "stage_timings": timing.totals(),
     }

@@ -32,11 +32,21 @@ def _seg_fns(cfg: SegConfig):
 
     Module-level on purpose: N worlds with the same config share the SAME
     callables, so `core.batched` can group their phases into one fused
-    launch (its grouping key includes the loss callable's identity)."""
+    launch (its grouping key includes the loss callable's identity).
+
+    ``loss_and_grad`` is deterministic on the card: the student's upsample
+    is matrix products (`models.seg.student.linear_resize`) and its
+    convolutions run under cuDNN's deterministic algorithms, scoped to the
+    call (the LLM paths keep the process's settings)."""
 
     def loss_and_grad(params, frames, labels):
-        grads, loss = grad_and_value(
-            lambda p: seg_loss(cfg, p, frames, labels))(params)
+        # deterministic cuDNN convolutions (no atomics in the weight
+        # gradients) for this call only, so that two runs of a phase, and
+        # its CUDA graph, give the same bits; no process-wide flag changes
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            grads, loss = grad_and_value(
+                lambda p: seg_loss(cfg, p, frames, labels))(params)
         return loss, grads
 
     @torch.no_grad()

@@ -58,8 +58,10 @@ J_AMS = JAMSConfig(t_update=8.0, t_horizon=30.0, k_iters=2, batch_size=2,
 T_SEG = SegConfig(**dataclasses.asdict(J_SEG))
 T_AMS = AMSConfig(**{f.name: getattr(J_AMS, f.name)
                      for f in dataclasses.fields(AMSConfig)})
+# the JAX package's debug_snapshot keys with no counterpart in the port (the
+# fourth, "sharded", has one since sharded execution was ported)
 NO_COUNTERPART = {"kernel_dispatch", "stacked_select_cache",
-                  "stacked_encode_cache", "sharded"}
+                  "stacked_encode_cache"}
 
 
 @pytest.fixture(autouse=True)
@@ -295,6 +297,7 @@ def test_debug_snapshot_keys_are_the_jax_package_s_minus_four():
     batched.train_phases_fused(_port_sessions(B), 6.0, force_stack=True)
     snap = obs.debug_snapshot()
     assert set(snap) == set(j_obs.debug_snapshot()) - NO_COUNTERPART
+    assert snap["sharded"] == batched.sharded_info()
     assert snap["fused_train_cache"] == batched.cache_info() == {
         "size": 1, "hits": 0, "misses": 1}
     ((key, winner),) = snap["auto_exec_modes"].items()

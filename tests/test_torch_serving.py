@@ -429,12 +429,13 @@ def test_timing_block_waits_for_nothing_on_the_cpu():
 
 
 def test_debug_snapshot_keeps_the_port_counters():
-    """The JAX package's keys minus the four with no counterpart in the
-    port (kernel dispatch races, selection/encode executable caches,
-    sharded execution)."""
+    """The JAX package's keys minus the three with no counterpart in the
+    port (kernel dispatch races, selection/encode executable caches); the
+    sharded counters have the JAX package's keys."""
     snap = t_serving.debug_snapshot()
     j_snap = j_serving.debug_snapshot()
     assert set(snap) == set(j_snap) - {"kernel_dispatch", "stacked_select_cache",
-                                       "stacked_encode_cache", "sharded"}
+                                       "stacked_encode_cache"}
     assert set(snap["update_pipeline"]) == set(j_snap["update_pipeline"])
     assert set(snap["fused_train_cache"]) == set(j_snap["fused_train_cache"])
+    assert set(snap["sharded"]) == set(j_snap["sharded"])

@@ -111,6 +111,29 @@ def test_forward_loss_grad_match_float32(name, hw):
         assert float(np.abs(b.numpy() - np.asarray(a)).max()) <= bound
 
 
+@pytest.mark.parametrize("sizes", [((3, 3), (24, 24)), ((4, 4), (25, 25)),
+                                   ((32, 32), (256, 256)), ((4, 3), (25, 17))])
+def test_linear_resize_matches_jax_in_float64(sizes):
+    """The student's upsample (`linear_resize`: two products with fixed
+    weight matrices) against ``jax.image.resize(method="linear")`` and its
+    ``jax.vjp``, on the student's logit sizes at 24, 25 and 256 frames and
+    an odd non-square one: forward and backward within 1e-12 (they differ
+    in summation order only)."""
+    (h, w), (H, W) = sizes
+    rng = np.random.default_rng(h * W)
+    x = rng.normal(size=(2, 5, h, w))
+    g = rng.normal(size=(2, 5, H, W))
+    with jax.enable_x64(True):
+        yj, vjp = jax.vjp(lambda a: jax.image.resize(a, (2, 5, H, W), method="linear"),
+                          jnp.asarray(x))
+        (gj,) = vjp(jnp.asarray(g))
+    xt = torch.tensor(x, requires_grad=True)
+    yt = ts.linear_resize(xt, (H, W))
+    yt.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gj), rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("name", ["student", "teacher"])
 def test_metas_shapes_and_flatten_order_match(name):
     """Same leaf shapes in the same flatten order: the wire order of a
