@@ -232,8 +232,11 @@ its own:
    exactly, and the predicted peak must be within 10% of the path's
    measured peak above what was allocated when it began (the trainer's
    with the init's copy and the two mask trees it holds beside the step);
-   the traced and analytic FLOPs printed beside them, a ``DRYRUN {...}``
-   JSON line, and the phase's seconds of host time;
+   every one-card pair must count zero collectives; then one sharded
+   trace, Gemma-2 9B's smoke train step on a (2, 4) mesh under the dry
+   run's fake process group on this machine's torch, whose collective
+   counts are printed; the traced and analytic FLOPs printed beside them,
+   a ``DRYRUN {...}`` JSON line, and the phase's seconds of host time;
 15. one JSON line ``{"kernels": [...]}`` with every kernel's launches (K3's
    and K4's on all six LLM paths and the trainer), error against its
    plain version, times and bound;
@@ -266,7 +269,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # the port, from src/ beside this file; the import fails (non-zero exit,
 # no result) in a directory that holds nothing else of the repo
 from repro_torch import tree  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core import batched, selection, timing  # noqa: E402
 from repro_torch.core import masked_adam as adam_core  # noqa: E402
 from repro_torch.core.batched import (stack_trees, train_phases_fused,  # noqa: E402
@@ -290,7 +293,8 @@ from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
 from repro_torch.kernels.topk_mask import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.topk_mask import ref as topk_ref  # noqa: E402
-from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, make_local_mesh  # noqa: E402
+from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16, MeshShape,  # noqa: E402
+                                     make_local_mesh)
 from repro_torch.launch.serve import (ENCDEC_BATCH, ENCDEC_DECODE,  # noqa: E402
                                       ENCDEC_PROMPT, HYBRID_BATCH, HYBRID_DECODE,
                                       HYBRID_PROMPT, MAIN_BATCH, MAIN_DECODE,
@@ -3009,6 +3013,12 @@ def train_path(dev, bw, bf16_flops) -> dict:
 # ---------------------------------------------------------------------------
 
 DRYRUN_PEAK_BOUND = 0.10  # relative, predicted against measured peak
+# the sharded trace's pair: a smoke config's train step on a (2, 4) mesh
+# under the fake process group (tests/test_torch_collectives.py holds the
+# same pair against XLA's count on the CPU)
+SHARDED_ARCH = "gemma2_9b"
+SHARDED_MESH = MeshShape(("data", "model"), (2, 4))
+SHARDED_SHAPE = dict(kind="train", seq_len=32, global_batch=4)
 
 
 def dryrun_phase(mems: list) -> dict:
@@ -3022,7 +3032,12 @@ def dryrun_phase(mems: list) -> dict:
     `DRYRUN_PEAK_BOUND` of the path's measured peak: its
     ``max_memory_allocated`` less what was allocated when the path began.
     The trainer's prediction adds the bytes it holds beside the step (the
-    edge's copy of the init and the two phases' mask trees)."""
+    edge's copy of the init and the two phases' mask trees). One card
+    issues no collective: each pair's collective bytes and counts must be
+    0. Then one sharded trace on this machine's torch: `SHARDED_ARCH`'s
+    smoke config on `SHARDED_MESH` under the dry run's fake process group
+    (`launch.mesh.fake_mesh`), whose counts are printed; it fails the run
+    if it raises or counts no all-gather or reduce-scatter."""
     t0 = time.perf_counter()
     mesh = make_local_mesh()
     rows = {}
@@ -3053,11 +3068,36 @@ def dryrun_phase(mems: list) -> dict:
         check(abs(predicted / measured - 1) <= DRYRUN_PEAK_BOUND,
               f"dry run {m['label']}: predicted peak {predicted:,} within "
               f"{DRYRUN_PEAK_BOUND:.0%} of the measured {measured:,}")
+        check(f["collective_bytes"] == 0 and set(f["collective_counts"].values()) == {0},
+              f"dry run {m['label']}: one card issues no collective "
+              f"({f['collective_bytes']}, {f['collective_counts']})")
     secs = time.perf_counter() - t0
     print(f"dry-run phase: {len(mems)} pairs traced on the meta device in {secs:.1f} s of "
           f"host time")
+    t1 = time.perf_counter()
+    cfg = get_smoke(SHARDED_ARCH, head_dim=64, remat=True, act_sharding=("data",))
+    f = lower_pair(cfg.name, SHARDED_SHAPE, SHARDED_MESH, cfg_override=cfg, verbose=False)
+    sharded = dict(arch=SHARDED_ARCH, mesh=list(SHARDED_MESH.shape), shape=SHARDED_SHAPE,
+                   collective_bytes=f["collective_bytes"], counts=f["collective_counts"],
+                   totals=f["collective_totals"], axes=f["collective_axes"],
+                   t_collective_s=f["t_collective_s"], trace_s=f["collective_trace_s"],
+                   ops=f["collective_ops"], seconds=time.perf_counter() - t1)
+    print(f"dry run sharded: {SHARDED_ARCH} smoke train step on mesh "
+          f"{SHARDED_MESH.shape} under the fake process group: "
+          f"{f['collective_bytes']:,.0f} collective bytes a device, counts "
+          f"{json.dumps(f['collective_counts'])}, bytes by axis "
+          f"{json.dumps(f['collective_axes'])}, priced at {f['t_collective_s'] * 1e3:.4f} ms; "
+          f"traced in {f['collective_trace_s']} s ({f['collective_ops']:,} ops)")
+    check(sum(f["collective_axes"].values()) == f["collective_bytes"],
+          f"the sharded trace's bytes by axis {f['collective_axes']} add up to its "
+          f"{f['collective_bytes']:,.0f} bytes")
+    check(f["collective_counts"]["all-gather"] > 0
+          and f["collective_counts"]["reduce-scatter"] > 0 and f["collective_bytes"] > 0,
+          f"the sharded trace counts the FSDP gathers and the gradients' "
+          f"reduce-scatters: {f['collective_counts']}")
+    rows["sharded"] = sharded
     print("DRYRUN " + json.dumps(rows))
-    return dict(rows=rows, seconds=secs)
+    return dict(rows=rows, seconds=time.perf_counter() - t0)
 
 
 T_START = time.perf_counter()

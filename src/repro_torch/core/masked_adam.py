@@ -22,6 +22,12 @@ Its step can clip the gradients to a global norm first (the JAX
 trainer's clip): the gradient-norm kernel reads the flat gradients once,
 and the masked-Adam kernel applies the clip as it steps.
 
+`ShardedMaskedAdam` is `FlatMaskedAdam`'s interface over DTensor params
+(the dry run's sharded trace): the flat layout concatenates leaves, which
+DTensors of different placements cannot be, so each leaf's local shard
+gets a flat buffer of its own, and the kernels step each shard where it
+lies.
+
 `momentum_update` (the Just-In-Time baseline's momentum SGD) is plain
 PyTorch on either device: the JAX package has no kernel for it.
 """
@@ -31,7 +37,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch import tree
+from repro_torch import spmd, tree
 from repro_torch.kernels import stacking
 from repro_torch.kernels.grad_norm.ops import grad_norm
 from repro_torch.kernels.masked_adam.ops import (bias_correction, masked_adam_3d,
@@ -162,6 +168,88 @@ class FlatMaskedAdam:
                                         self.u):
                 masked_adam_3d(p, g, m, v, b, bc, b1=b1, b2=b2, eps=eps,
                                out=(p, m, v, u), gn=gn, clip=clip)
+        self.count = i
+
+
+def _flat_local(t):
+    """A local shard as a (1, rows, 128) buffer (zero padding past it)."""
+    n = t.numel()
+    out = t.new_zeros((1, -(-n // stacking.LANES), stacking.LANES))
+    out.view(-1)[:n].copy_(t.reshape(-1))
+    return out
+
+
+class ShardedMaskedAdam:
+    """`FlatMaskedAdam`'s interface (``params``, ``zero_grad``,
+    ``grad_norm``, ``step``, ``u_tree``) over a tree of DTensor params
+    that require grad. Each leaf's local shard is laid out as its own
+    ``(1, rows, 128)`` buffer, a DTensor sharded along its rows on the
+    mesh dims that shard the leaf (replicated on the rest), with m
+    (``m_dtype``), v, u (float32) and the mask (bool) beside it. `step`
+    flattens each leaf and its gradient (a gradient still a partial sum
+    is reduced to the leaf's placements first: the step's reduce-scatter
+    or all-reduce), runs masked Adam on each shard (`masked_adam_3d`'s
+    DTensor branch) and writes the new values back into the leaf;
+    `grad_norm` sums the shards' squares and all-reduces them once
+    (`kernels.grad_norm.ops.grad_norm`'s DTensor branch)."""
+
+    def __init__(self, params, m_dtype=None):
+        from torch.distributed.tensor import Replicate, Shard
+
+        self.params = params
+        self.leaves = tree.leaves(params)
+        self.flat_place = [[Shard(1) if isinstance(p, Shard) else Replicate()
+                            for p in leaf.placements] for leaf in self.leaves]
+        flat = [self._flat(leaf.detach(), j) for j, leaf in enumerate(self.leaves)]
+        self.m = [torch.zeros_like(b, dtype=m_dtype or b.dtype) for b in flat]
+        self.v = [torch.zeros_like(b, dtype=torch.float32) for b in flat]
+        self.u = [torch.zeros_like(b, dtype=torch.float32) for b in flat]
+        self.mask_buf = [torch.zeros_like(b, dtype=torch.bool) for b in flat]
+        self.count = spmd.like(torch.zeros((1,), dtype=torch.int32,
+                                           device=flat[0].to_local().device), flat[0])
+        self.g = None
+        self.u_tree = tree.unflatten(tree.flatten(params)[1], self.u)
+
+    def _flat(self, t, j: int):
+        """Leaf j's (or its gradient's, its mask's) local shard as its flat
+        buffer."""
+        return spmd.local(_flat_local, self.flat_place[j], (self.leaves[j].placements,))(t)
+
+    def set_mask(self, mask) -> None:
+        """Copy a mask tree (DTensors placed as the params) into the flat
+        masks."""
+        self.mask_buf = [self._flat(m, j).to(torch.bool)
+                         for j, m in enumerate(tree.leaves(mask))]
+
+    def zero_grad(self) -> None:
+        for leaf in self.leaves:
+            leaf.grad = None
+        self.g = None
+
+    def _grads(self):
+        if self.g is None:
+            self.g = [self._flat(leaf.grad, j) for j, leaf in enumerate(self.leaves)]
+        return self.g
+
+    def grad_norm(self):
+        with torch.no_grad():
+            return grad_norm(self._grads())
+
+    def step(self, *, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+             eps: float = 1e-8, gn=None, clip: float = 0.0) -> None:
+        i, bc = bias_correction(self.count, lr=lr, b1=b1, b2=b2)
+        with torch.no_grad():
+            g = self._grads()
+            for j, leaf in enumerate(self.leaves):
+                p = self._flat(leaf.detach(), j)
+                p, self.m[j], self.v[j], self.u[j] = masked_adam_3d(
+                    p, g[j], self.m[j], self.v[j], self.mask_buf[j], bc, b1=b1, b2=b2,
+                    eps=eps, gn=gn, clip=clip)
+                unflat = spmd.local(
+                    lambda f, t: f.reshape(-1)[:t.numel()].view(t.shape),
+                    leaf.placements, (self.flat_place[j], leaf.placements))
+                leaf.detach().copy_(unflat(p, leaf.detach()))
+        self.u_tree = tree.unflatten(tree.flatten(self.params)[1], self.u)
         self.count = i
 
 

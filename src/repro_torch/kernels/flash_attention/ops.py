@@ -40,6 +40,13 @@ nothing is launched. It adds the work the kernel would do to
 and PV), 10 hd backward (the scores again, dP, dV, dQ and dK). Any other
 device raises.
 
+A DTensor q (the dry run's sharded trace, `repro_torch.spmd`) runs the
+same wrapper on local shards through ``local_map``: attention is local
+per batch row and per head, so q keeps its shards of B, KV and G, k and
+v those of B and KV (q's), and every other shard or partial sum is
+gathered first; where q is sharded over G, each rank's dk and dv are
+partial sums over its q heads.
+
 ``launches`` counts forward kernel launches of both routes (plain-version
 calls do not count); ``launches_by_route`` counts them per route.
 ``bwd_launches`` and ``bwd_launches_by_route`` do the same for the
@@ -52,6 +59,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
@@ -260,7 +268,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q's dtype: softmax attention with float32 scores and accumulation,
     ``hd**-0.5`` scaling, an optional tanh softcap and causal /
     sliding-window masks; differentiable through `FlashAttention` where
-    autograd records."""
+    autograd records. A DTensor q runs on local shards (the module
+    docstring)."""
+    if spmd.is_dtensor(q):
+        (pq, gq), (pkv, gkv) = (spmd.operand(q, (0, 2, 3)),
+                                spmd.operand(q, (0, 2, 3), {0: 0, 2: 2}))
+        return spmd.local(
+            lambda a, b, c: flash_attention(a, b, c, causal=causal, window=window,
+                                            softcap=softcap),
+            pq, (pq, pkv, pkv), (gq, gkv, gkv))(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap)

@@ -15,6 +15,12 @@ checks and gets a meta norm, after allocating the route's workspace (as
 many float64 partials as `launch_blocks` gives on an H100 SXM,
 `device.H100_SMS`); nothing is computed or launched. Any other device raises.
 
+A DTensor buffer (the dry run's sharded trace, `repro_torch.spmd`) is
+summed where it lies: the wrapper squares its local shard's norm through
+``local_map``, a partial sum over the mesh dims that shard the buffer
+(replicated elsewhere), adds the buffers' squares, all-reduces the sum
+and takes its root: the one collective a sharded clip issues.
+
 ``launches`` counts kernel launches (plain-version calls do not count).
 """
 from __future__ import annotations
@@ -23,6 +29,7 @@ import ctypes
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.device import sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.grad_norm.ref import grad_norm_ref
@@ -70,6 +77,19 @@ def grad_norm(bufs) -> torch.Tensor:
     bufs = tuple(bufs)
     if not bufs:
         raise ValueError("grad_norm takes at least one buffer")
+    if any(spmd.is_dtensor(b) for b in bufs):
+        from torch.distributed.tensor import Replicate
+
+        # each shard's sum of squares: an operand with none of b's dims,
+        # whose "gradient" placements are a partial sum over b's shards
+        sq = [spmd.local(lambda b: grad_norm((b,)).square(),
+                         spmd.operand(b, range(b.ndim), {})[1],
+                         (spmd.operand(b, range(b.ndim))[0],))(b)
+              for b in bufs]
+        total = sq[0]
+        for s in sq[1:]:
+            total = total + s
+        return total.redistribute(placements=[Replicate()] * total.device_mesh.ndim).sqrt()
     dev = bufs[0].device
     if dev.type == "cpu":
         return grad_norm_ref(bufs)

@@ -27,6 +27,11 @@ checks and gets meta outputs of the shapes and dtypes that route
 allocates (none when ``out`` is given); nothing is computed or launched.
 Any other device raises.
 
+A DTensor p (the dry run's sharded trace, `repro_torch.spmd`) runs
+`masked_adam_3d` on each rank's shard through ``local_map``: the step is
+elementwise, so g, m, v, the mask and ``out`` take p's placements, and bc
+and gn are replicated.
+
 ``launches`` counts kernel launches (plain-version calls do not count).
 """
 from __future__ import annotations
@@ -35,7 +40,7 @@ import ctypes
 
 import torch
 
-from repro_torch import tree
+from repro_torch import spmd, tree
 from repro_torch.device import sm_count
 from repro_torch.kernels import build, stacking
 from repro_torch.kernels.masked_adam.ref import clip_ref, masked_adam_ref
@@ -114,8 +119,20 @@ def masked_adam_3d(p, g, m, v, mask, bc, *, b1: float, b2: float,
     so the step can run in place (a 2.5B-parameter model's state has no
     room for a second copy). Given ``gn`` and a positive ``clip``, g is
     clipped first (`ref.clip_ref`) and the clipped gradients are written
-    over g on every device; one without the other raises."""
+    over g on every device; one without the other raises. A DTensor p
+    steps each rank's shard (the module docstring)."""
     global launches
+    if spmd.is_dtensor(p):
+        kw = dict(b1=b1, b2=b2, eps=eps, clip=clip)
+        pp, rep = p.placements, spmd.operand(p, ())[0]
+        outs = () if out is None else tuple(out)
+
+        def step(p, g, m, v, mask, bc, gn, *out):
+            return masked_adam_3d(p, g, m, v, mask, bc, out=out or None, gn=gn, **kw)
+
+        return spmd.local(step, (pp,) * 4,
+                          (pp,) * 5 + (rep, None if gn is None else rep)
+                          + (pp,) * len(outs))(p, g, m, v, mask, bc, gn, *outs)
     if (gn is not None) != (clip > 0):
         raise ValueError(f"gn and a positive clip go together (clip {clip}, gn "
                          f"{'given' if gn is not None else 'None'})")

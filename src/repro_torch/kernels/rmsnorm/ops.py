@@ -31,6 +31,13 @@ allocates, the backward's float32 dw partials included (as many rows as
 the C planner would ask for on an H100 SXM, `H100_SMS`); nothing is
 computed or launched. Any other device raises.
 
+A DTensor (the dry run's sharded trace, `repro_torch.spmd`) runs the
+same wrapper on its local shard through ``local_map``: a row's norm is
+local wherever d_model is whole, so x keeps its shards of every other dim
+(a shard of the last dim, or a partial sum, is gathered first), w is
+replicated, and w's gradient is a partial sum over the mesh dims that
+shard x's rows.
+
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
 ones (plain-version calls do not count).
 """
@@ -40,6 +47,7 @@ import ctypes
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm.ref import rms_norm_bwd_ref, rms_norm_ref
 
@@ -209,7 +217,12 @@ class RMSNorm(torch.autograd.Function):
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     """``x * rsqrt(mean(x^2, -1) + eps) * (1 + w)`` in float32, in x's
     dtype; x (..., d) float32 or bfloat16, w (d,) float32 or bfloat16;
-    differentiable through `RMSNorm` where autograd records."""
+    differentiable through `RMSNorm` where autograd records. A DTensor x
+    runs on its local shard (the module docstring)."""
+    if spmd.is_dtensor(x):
+        rows = range(x.ndim - 1)
+        (px, gx), (pw, gw) = spmd.operand(x, rows), spmd.operand(x, rows, {})
+        return spmd.local(lambda a, b: rms_norm(a, b, eps), px, (px, pw), (gx, gw))(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return RMSNorm.apply(x, w, eps)
     return _forward(x, w, eps)

@@ -14,12 +14,14 @@ Strategy:
     heads can't (and over data too for batch=1 long-context).
 
 ``mesh`` is a `launch.mesh.MeshShape` (axis names and sizes): the rules
-read nothing else of it. The port does not run sharded yet (ROADMAP §1
-item 5); the dry run (`launch.dryrun`) prices each device's share with
-these rules.
+read nothing else of it. The dry run (`launch.dryrun`) prices each
+device's share with these rules, and its sharded trace runs the step on
+DTensors placed by them (`placements_for`, `shard_tree`) over a fake
+device mesh (`launch.mesh.fake_mesh`).
 """
 from __future__ import annotations
 
+from repro_torch import spmd
 from repro_torch.models.common import ModelConfig
 
 
@@ -128,3 +130,53 @@ def rules_for(cfg: ModelConfig, mesh, *, shape_kind: str = "train", fsdp: bool =
         rules["cache_seq"] = None
     rules["seq"] = None
     return rules
+
+
+def _axes(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements_for(spec, mesh) -> list:
+    """DTensor placements on ``mesh`` (a `DeviceMesh` with dim names) of a
+    partition spec (`models.common.meta_pspec`: one entry a tensor dim, a
+    mesh axis name, a tuple of names, or None): ``Shard(d)`` on each mesh
+    dim that dim ``d`` names, ``Replicate()`` on the rest. A dim over
+    several mesh dims is split over them in mesh order, as XLA splits it
+    over ("pod", "data"); a dim they do not divide is split unevenly, in
+    ceil-sized chunks, as XLA pads. A mesh dim of one device shards
+    nothing: it replicates."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        for a in _axes(entry):
+            i = names.index(a)
+            if mesh.size(i) == 1:
+                continue
+            if out[i] != Replicate():
+                raise ValueError(f"mesh axis {a!r} shards two dims of spec {spec}")
+            out[i] = Shard(d)
+    return out
+
+
+def shard_tree(tensors, specs, mesh, *, dtype=None, requires_grad: bool = False):
+    """A nest of dicts of tensors as DTensors on ``mesh`` placed by the
+    same-structure nest of ``specs`` (`placements_for`), each leaf in
+    ``dtype`` where given, else its own. A meta leaf's local shard (rank
+    0's) is an empty meta tensor of ceil-sized dims; a leaf with values,
+    the same on every rank, is distributed (each rank keeps its shard).
+    Non-tensor leaves (a decode position) stay as they are."""
+    if isinstance(tensors, dict):
+        return {k: shard_tree(tensors[k], specs[k], mesh, dtype=dtype,
+                              requires_grad=requires_grad) for k in tensors}
+    if not hasattr(tensors, "shape"):
+        return tensors
+    if tensors.device.type != "meta":
+        from torch.distributed.tensor import distribute_tensor
+
+        t = distribute_tensor(tensors.detach().to(dtype or tensors.dtype), mesh,
+                              placements_for(specs, mesh))
+        return t.requires_grad_(requires_grad)
+    return spmd.from_meta(tensors.shape, dtype or tensors.dtype, mesh,
+                          placements_for(specs, mesh), requires_grad=requires_grad)

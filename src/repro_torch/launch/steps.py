@@ -8,6 +8,7 @@ import contextlib
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.core.masked_adam import FlatMaskedAdam
 from repro_torch.models.registry import Model
 
@@ -59,7 +60,8 @@ def make_serve_step(model: Model):
 
     def serve_step(params, caches, batch):
         logits, caches = model.decode_step(params, caches, batch["tokens"], batch["pos"])
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        # a vocabulary sharded over cards is gathered first (`spmd.whole`)
+        next_tok = torch.argmax(spmd.whole(logits, -1), dim=-1).to(torch.int32)
         return next_tok, caches, logits
 
     return serve_step

@@ -6,8 +6,9 @@ the JAX package's `models/common.py`.
 package's sharding, scan or kernel choice (``remat``, ``use_pallas``,
 ``scan_unroll``, ``act_sharding``, ``moe_ep_axis``, ``moe_cap_axes``,
 ``attn_q_chunk``, ``attn_kv_chunk``) are kept and read by nothing here:
-the port runs eagerly on one card, and a CUDA tensor always takes the
-hand-written kernels.
+the port runs eagerly (its dry run's sharded trace places tensors by the
+sharding rules alone), and a CUDA tensor always takes the hand-written
+kernels.
 
 A ``ParamMeta`` tree describes every leaf's shape, its logical axes
 (one name a dimension, the JAX package's vocabulary below) and its

@@ -13,6 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spmd
 from repro_torch.kernels.rmsnorm.ops import rms_norm as _rms_norm_kernel
 from repro_torch.models.common import ModelConfig, ParamMeta, dense_meta
 
@@ -26,6 +27,13 @@ def rms_norm(x, w, eps=1e-6):
 
 
 def layer_norm(x, w, eps=1e-5):
+    """LayerNorm with scale (1 + w), in float32, in x's dtype. A DTensor x
+    is normed on its local rows (`spmd.local`), d_model whole, as
+    `kernels.rmsnorm.ops.rms_norm` norms it."""
+    if spmd.is_dtensor(x):
+        rows = range(x.ndim - 1)
+        (px, gx), (pw, gw) = spmd.operand(x, rows), spmd.operand(x, rows, {})
+        return spmd.local(lambda a, b: layer_norm(a, b, eps), px, (px, pw), (gx, gw))(x, w)
     dt = x.dtype
     x = x.to(torch.float32)
     mu = torch.mean(x, dim=-1, keepdim=True)
@@ -52,7 +60,7 @@ def apply_rope(x, positions, theta: float):
     """x: (B, seq, *head_dims, head_dim); positions: (B, seq). Rotates
     halves (not interleaved pairs), in float32, cast back to x's dtype."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    freqs = spmd.like(rope_freqs(hd, theta, x.device), x)  # (hd/2,)
     ang = positions[..., None].to(torch.float32) * freqs  # (B, seq, hd/2)
     expand = (slice(None), slice(None)) + (None,) * (x.dim() - 3) + (slice(None),)
     cos = torch.cos(ang)[expand]  # (B, seq, 1..., hd/2)
@@ -116,8 +124,9 @@ def sinusoidal_pos(positions, d_model: int, dtype=torch.float32):
     (..., seq). The frequency denominator is max(half - 1, 1), as in the
     JAX package."""
     half = d_model // 2
-    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
-                      * (math.log(10000.0) / max(half - 1, 1)))
+    freqs = spmd.like(torch.exp(-torch.arange(half, dtype=torch.float32,
+                                              device=positions.device)
+                                * (math.log(10000.0) / max(half - 1, 1))), positions)
     ang = positions[..., None].to(torch.float32) * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
@@ -134,11 +143,15 @@ def embed_metas(cfg: ModelConfig) -> dict:
 def embed_apply(cfg: ModelConfig, p: dict, tokens, positions=None):
     """Token embedding, plus learned or sinusoidal positions where the
     config has them (RoPE enters in attention instead)."""
-    x = p["tok"][tokens].to(cfg.cdtype)
+    # a DTensor table goes through F.embedding, whose sharding rules
+    # DTensor keeps for every torch (indexing's backward has none on some)
+    x = (spmd.embedding(tokens, p["tok"]) if spmd.is_dtensor(tokens)
+         else p["tok"][tokens]).to(cfg.cdtype)
     if cfg.embed_scale:
         # the scale is rounded to the compute dtype first, as the JAX
         # package does (sqrt(3584) is 60.0 in bf16, not 59.87)
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.cdtype, device=x.device)
+        x = x * spmd.like(torch.tensor(cfg.d_model**0.5, dtype=cfg.cdtype, device=x.device),
+                          x)
     if cfg.pos == "learned":
         x = x + p["pos"][positions].to(cfg.cdtype)
     elif cfg.pos == "sinusoidal":

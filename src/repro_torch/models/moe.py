@@ -13,8 +13,8 @@ JAX package also computes outside any Pallas kernel. The JAX package's
 `_act` is `layers.glu_act`.
 
 ``moe_ep_axis`` and ``moe_cap_axes`` pin the JAX package's expert-parallel
-layout; nothing here reads them (one card, no sharding), as nothing reads
-``remat``.
+layout; nothing here reads them: the dry run's sharded trace places the
+experts by the sharding rules alone.
 
 On the meta device (the dry run, `launch/dryrun.py`) which slots are
 kept is not known, and ``keep.nonzero()`` has no meta shape: there the
@@ -22,12 +22,21 @@ dispatch takes the bound, all T*k slots kept, as the JAX package's
 capacity-based dispatch is static in shape. Only the gathered rows'
 count depends on it (T*k rows at most).
 
+On DTensors (the dry run's sharded trace) the dispatch into the buffer
+and the combine out of it run on each rank's tokens (`spmd.local`): a
+rank fills its own capacity rows of every expert (the buffer's rows
+sharded as the tokens are), and gathers the experts' outputs for its
+tokens, which the expert products leave sharded over the experts.
+
 `moe_ref` is the dense oracle (every expert on every token, no drops).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch import spmd
 from repro_torch.models.common import ModelConfig, ParamMeta
 from repro_torch.models.layers import glu_act, mlp_apply, mlp_metas
 
@@ -51,9 +60,13 @@ def _route(cfg: ModelConfig, p: dict, x_flat):
     and the Switch load-balance loss over each token's first expert."""
     logits = (x_flat @ p["router"]).to(torch.float32)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    weights, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    topk = functools.partial(torch.topk, k=cfg.experts_per_token, dim=-1)
+    if spmd.is_dtensor(probs):  # per token: on each rank's tokens, experts whole
+        (pt, gt) = spmd.operand(probs, (0,))
+        topk = spmd.local(topk, (pt, pt), (pt,), (gt,))
+    weights, idx = topk(probs)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
-    experts = torch.arange(cfg.num_experts, device=x_flat.device)
+    experts = spmd.like(torch.arange(cfg.num_experts, device=x_flat.device), x_flat)
     frac_tokens = (idx[:, :1] == experts).to(torch.float32).mean(dim=0)  # primary
     mean_probs = probs.mean(dim=0)
     aux = cfg.num_experts * torch.sum(frac_tokens * mean_probs)
@@ -83,32 +96,53 @@ def dispatch(cfg: ModelConfig, idx):
     return pos_f, pos_f < capacity(cfg, T)
 
 
-def moe_apply(cfg: ModelConfig, p: dict, x):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss float32 scalar)."""
-    B, S, d = x.shape
-    k, E = cfg.experts_per_token, cfg.num_experts
-    T = B * S
-    x_flat = x.reshape(T, d)
-    weights, idx, aux = _route(cfg, p, x_flat)
+def _dispatch_tokens(cfg: ModelConfig, x_flat, idx):
+    """The (E, cap, d) expert buffer of tokens x_flat (T, d) routed to
+    experts idx (T, k), and each slot's position and keep flag (T*k,)."""
+    T, d = x_flat.shape
+    k, E = idx.shape[1], cfg.num_experts
     cap = capacity(cfg, T)
-    idx_f, w_f = idx.reshape(T * k), weights.reshape(T * k)
+    idx_f = idx.reshape(T * k)
     pos_f, keep = dispatch(cfg, idx)
 
     # buffer row e * cap + pos of each kept slot, written once (token-major)
-    if x.device.type == "meta":  # the bound: every slot kept
-        kept = torch.arange(T * k, device=x.device)
+    if x_flat.device.type == "meta":  # the bound: every slot kept
+        kept = torch.arange(T * k, device=x_flat.device)
     else:
         kept = keep.nonzero()[:, 0]
-    buffer = torch.zeros((E * cap, d), dtype=x.dtype, device=x.device)
+    buffer = torch.zeros((E * cap, d), dtype=x_flat.dtype, device=x_flat.device)
     buffer.index_copy_(0, idx_f[kept] * cap + pos_f[kept], x_flat.index_select(0, kept // k))
-    buffer = buffer.view(E, cap, d)
+    return buffer.view(E, cap, d), pos_f, keep
+
+
+def _combine(h_out, idx, weights, pos_f, keep):
+    """Each token's kept slots' expert outputs from h_out (E, cap, d),
+    weighted and summed: (T, d)."""
+    E, cap, d = h_out.shape
+    T, k = idx.shape
+    idx_f, w_f = idx.reshape(T * k), weights.reshape(T * k)
+    gathered = h_out.reshape(E * cap, d).index_select(
+        0, idx_f * cap + torch.where(keep, pos_f, 0))  # (T*k, d)
+    gathered = gathered * (w_f * keep.to(w_f.dtype))[:, None]
+    return gathered.reshape(T, k, d).sum(dim=1)
+
+
+def moe_apply(cfg: ModelConfig, p: dict, x):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss float32 scalar)."""
+    B, S, d = x.shape
+    x_flat = x.reshape(B * S, d)
+    weights, idx, aux = _route(cfg, p, x_flat)
+    dispatch_fn, combine_fn = (lambda a, b: _dispatch_tokens(cfg, a, b)), _combine
+    if spmd.is_dtensor(x_flat):
+        tok = (0,)
+        (px, gx), (pi, gi) = spmd.operand(x_flat, tok), spmd.operand(x_flat, tok, {0: 0})
+        pb, gb = spmd.operand(x_flat, tok, {0: 1})
+        dispatch_fn = spmd.local(dispatch_fn, (pb, pi, pi), (px, pi), (gx, gi))
+        combine_fn = spmd.local(combine_fn, px, (pb,) + (pi,) * 4, (gb,) + (gi,) * 4)
+    buffer, pos_f, keep = dispatch_fn(x_flat, idx)
 
     h = glu_act(cfg, torch.bmm(buffer, p["wg"])) * torch.bmm(buffer, p["wu"])
-    h_out = torch.bmm(h, p["wd"]).view(E * cap, d)
-
-    gathered = h_out.index_select(0, idx_f * cap + torch.where(keep, pos_f, 0))  # (T*k, d)
-    gathered = gathered * (w_f * keep.to(w_f.dtype))[:, None]
-    out = gathered.reshape(T, k, d).sum(dim=1)
+    out = combine_fn(torch.bmm(h, p["wd"]), idx, weights, pos_f, keep)
     if cfg.num_shared_experts:
         out = out + mlp_apply(cfg, p["shared"], x_flat)
     return out.reshape(B, S, d), aux

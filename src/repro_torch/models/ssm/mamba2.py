@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spmd
 from repro_torch.models.common import ModelConfig, ParamMeta
 from repro_torch.models.layers import rms_norm
 
@@ -62,7 +63,8 @@ def _causal_conv(x, w, state=None):
     last k-1 inputs: the carried state)."""
     k = w.shape[0]
     if state is None:
-        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        pad = spmd.like(torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                                    device=x.device), x)
     else:
         pad = state
     xp = torch.cat([pad, x], dim=1)
@@ -87,7 +89,7 @@ def _inputs(cfg: ModelConfig, p: dict, x, conv_states=None):
     Bm, Cm = torch.split(bc, N, dim=-1)  # (B,S,N) each
     dt = F.softplus((x @ p["w_dt"]).to(torch.float32) + p["dt_bias"])  # (B,S,H)
     A = -torch.exp(p["a_log"].to(torch.float32))  # (H,) negative
-    xh = xs.reshape(B, S, H, P)
+    xh = spmd.split_last(xs, (H, P))
     return z, xh, Bm, Cm, dt, A, {"x": new_cs_x, "bc": new_cs_bc}
 
 
@@ -111,7 +113,17 @@ def _ssd_chunked(xh, Bm, Cm, dt, A, d_skip, Lc: int, out_dtype):
     """The SSD scan over chunks of Lc. xh (B,S,H,P), Bm/Cm (B,S,N) in the
     model dtype; dt (B,S,H) and A (H,) float32. Returns y (B,S,H,P) in
     ``out_dtype`` (the float32 result cast) and the final state (B,H,P,N)
-    float32."""
+    float32. On DTensors the scan runs on local shards (`spmd.local`): it
+    is local per batch row and per head."""
+    if spmd.is_dtensor(xh):
+        keep = (0, 2)
+        ops = [spmd.operand(xh, keep), spmd.operand(xh, keep, {0: 0}),
+               spmd.operand(xh, keep, {0: 0}), spmd.operand(xh, keep, {0: 0, 2: 2}),
+               spmd.operand(xh, keep, {2: 0}), spmd.operand(xh, keep, {2: 0})]
+        outs = (ops[0][0], spmd.operand(xh, keep, {0: 0, 2: 1})[0])
+        return spmd.local(lambda *a: _ssd_chunked(*a, Lc, out_dtype), outs,
+                          [o[0] for o in ops], [o[1] for o in ops])(
+            xh, Bm, Cm, dt, A, d_skip)
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
     causal = torch.ones((Lc, Lc), dtype=torch.bool, device=xh.device).tril()
@@ -158,7 +170,21 @@ def mamba2_apply(cfg: ModelConfig, p: dict, x, chunk: int | None = None,
 def _ssd_step(S_prev, xt, bt, ct, dtt, A, d_skip):
     """One token of the recurrence. S_prev (B,H,P,N) float32; xt (B,H,P),
     bt/ct (B,N) in the model dtype; dtt (B,H) float32. Returns (y (B,H,P)
-    float32, S_new)."""
+    float32, S_new). On DTensors it runs on local shards (`spmd.local`): a
+    token's step is local per batch row and per head, and the token moves
+    to where the state lies."""
+    if spmd.is_dtensor(S_prev):
+        keep = (0, 1)
+        ops = [spmd.operand(S_prev, keep), spmd.operand(S_prev, keep, {0: 0, 1: 1}),
+               spmd.operand(S_prev, keep, {0: 0}), spmd.operand(S_prev, keep, {0: 0}),
+               spmd.operand(S_prev, keep, {0: 0, 1: 1}), spmd.operand(S_prev, keep, {1: 0})]
+        args = [S_prev, xt, bt, ct, dtt, A]
+        if d_skip is not None:
+            ops.append(spmd.operand(S_prev, keep, {1: 0}))
+            args.append(d_skip)
+        return spmd.local(lambda *a: _ssd_step(*a, *(() if d_skip is not None else (None,))),
+                          (ops[1][0], ops[0][0]), [o[0] for o in ops],
+                          [o[1] for o in ops])(*args)
     S_new = S_prev * torch.exp(dtt * A)[..., None, None] + torch.einsum(
         "bhp,bn,bh->bhpn", xt.to(torch.float32), bt.to(torch.float32), dtt)
     y = torch.einsum("bhpn,bn->bhp", S_new, ct.to(torch.float32))

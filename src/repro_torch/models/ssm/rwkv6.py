@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spmd
 from repro_torch.models.common import ModelConfig, ParamMeta
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.ssm.mamba2 import chunk_len
@@ -80,9 +81,9 @@ def _time_mix_inputs(cfg, p, x, last=None):
     def mix(mu):
         return x + (xx - x) * torch.sigmoid(mu)
 
-    r = (mix(p["mu_r"]) @ p["w_r"]).reshape(B, S, H, P)
-    k = (mix(p["mu_k"]) @ p["w_k"]).reshape(B, S, H, P)
-    v = (mix(p["mu_v"]) @ p["w_v"]).reshape(B, S, H, P)
+    r = spmd.split_last(mix(p["mu_r"]) @ p["w_r"], (H, P))
+    k = spmd.split_last(mix(p["mu_k"]) @ p["w_k"], (H, P))
+    v = spmd.split_last(mix(p["mu_v"]) @ p["w_v"], (H, P))
     g = F.silu(mix(p["mu_g"]) @ p["w_g"])
     xw = mix(p["mu_w"])
     f32 = torch.float32
@@ -93,14 +94,22 @@ def _time_mix_inputs(cfg, p, x, last=None):
     # clamp: a saturated decay (logw -> -inf) makes cum-sum differences in
     # the chunked path inf - inf = NaN; e^-20 is already an exact-zero decay
     logw = torch.clamp(logw, -20.0, -1e-6)
-    w = logw.reshape(B, S, H, P)
+    w = spmd.split_last(logw, (H, P))
     u = p["bonus_u"].reshape(H, P)
     return r, k, v, g, w, u
 
 
 def _wkv_chunked(r, k, v, logw, u, chunk: int):
     """Chunked wkv. r,k,v,logw: (B,S,H,P) float32; u: (H,P).
-    Returns y (B,S,H,P) float32 and the final state (B,H,P,P)."""
+    Returns y (B,S,H,P) float32 and the final state (B,H,P,P). On
+    DTensors the scan runs on local shards (`spmd.local`): it is local per
+    batch row and per head."""
+    if spmd.is_dtensor(r):
+        keep = (0, 2)
+        ops = [spmd.operand(r, keep)] * 4 + [spmd.operand(r, keep, {2: 0})]
+        outs = (ops[0][0], spmd.operand(r, keep, {0: 0, 2: 1})[0])
+        return spmd.local(lambda *a: _wkv_chunked(*a, chunk), outs,
+                          [o[0] for o in ops], [o[1] for o in ops])(r, k, v, logw, u)
     B, S, H, P = r.shape
     Lc = chunk_len(S, chunk)
     u = u.to(torch.float32)
@@ -162,7 +171,15 @@ def rwkv6_time_mix(cfg: ModelConfig, p: dict, x, chunk: int = 64, want_state: bo
 
 def _wkv_step(rt, kt, vt, wt, u, S_prev):
     """One token of the recurrence: (y (B,H,P), S_new). All (B,H,P) but
-    u (H,P) and S_prev (B,H,P,P)."""
+    u (H,P) and S_prev (B,H,P,P). On DTensors it runs on local shards
+    (`spmd.local`): a token's step is local per batch row and per head,
+    and the token moves to where the state lies."""
+    if spmd.is_dtensor(S_prev):
+        keep = (0, 1)
+        ops = ([spmd.operand(S_prev, keep, {0: 0, 1: 1})] * 4
+               + [spmd.operand(S_prev, keep, {1: 0}), spmd.operand(S_prev, keep)])
+        return spmd.local(_wkv_step, (ops[0][0], ops[5][0]), [o[0] for o in ops],
+                          [o[1] for o in ops])(rt, kt, vt, wt, u, S_prev)
     bonus = (rt * u.to(torch.float32) * kt).sum(-1)  # (B,H)
     y = torch.einsum("bhp,bhpq->bhq", rt, S_prev) + bonus[..., None] * vt
     S_new = S_prev * torch.exp(wt)[..., None] + torch.einsum("bhp,bhq->bhpq", kt, vt)

@@ -53,7 +53,7 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import tree
+from repro_torch import spmd, tree
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, ParamMeta, norm_meta, stack_group
@@ -154,7 +154,7 @@ def _ffn(cfg: ModelConfig, kind: str, p: dict, h):
 
 
 def _no_aux(x):
-    return torch.zeros((), dtype=torch.float32, device=x.device)
+    return spmd.like(torch.zeros((), dtype=torch.float32, device=x.device), x)
 
 
 def _gate(p: dict, x):
@@ -249,9 +249,10 @@ def _group_body(cfg: ModelConfig, shared, gp: dict, x, *, positions, memory):
     """One group: the shared attention block (where the config has one),
     then the pattern's blocks. Returns (x, the blocks' aux losses
     summed)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _no_aux(x)
+    gp = spmd.at_use(gp, "groups")  # inside the body: a recompute uses them again
     if shared is not None:
-        x, _ = _shared_attn_apply(cfg, shared, x, positions)
+        x, _ = _shared_attn_apply(cfg, spmd.at_use(shared, "shared_attn"), x, positions)
     for i, kind in enumerate(cfg.pattern):
         x, a, _ = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions,
                               memory=memory)
@@ -273,8 +274,10 @@ def _stack_forward(cfg: ModelConfig, params: dict, x, positions, memory=None):
     return x, torch.stack(auxs).sum()
 
 
-def _positions(B: int, S: int, device):
-    return torch.arange(S, device=device).expand(B, S)
+def _positions(B: int, S: int, ref):
+    """(B, S) positions 0..S-1 on ``ref``'s device (replicated over its
+    mesh where ``ref`` is a DTensor)."""
+    return spmd.like(torch.arange(S, device=ref.device).expand(B, S), ref)
 
 
 def encode(cfg: ModelConfig, params: dict, frames):
@@ -283,12 +286,15 @@ def encode(cfg: ModelConfig, params: dict, frames):
     added to the frames: the blocks apply rope only when ``pos == "rope"``,
     as the JAX package's do."""
     enc = params["encoder"]
-    positions = _positions(frames.shape[0], frames.shape[1], frames.device)
+    positions = _positions(frames.shape[0], frames.shape[1], frames)
     x = frames.to(cfg.cdtype)
     for layer in range(cfg.encoder_layers):
         p = group_params(enc, layer)["b0"]
-        body = functools.partial(block_apply, cfg, "attn_nc", p, positions=positions)
-        x = _remat(cfg, p, lambda h, body=body: body(h)[0], x)
+
+        def body(h, p=p):
+            return block_apply(cfg, "attn_nc", spmd.at_use(p, "encoder"), h,
+                               positions=positions)[0]
+        x = _remat(cfg, p, body, x)
     return apply_norm(cfg, x, enc["final_norm"])
 
 
@@ -307,12 +313,12 @@ def forward(cfg: ModelConfig, params: dict, tokens, memory=None):
     Returns (logits (B,S,V), aux): aux is the MoE load-balance loss summed
     over the stack (0 for dense stacks)."""
     B, S = tokens.shape
-    positions = _positions(B, S, tokens.device)
+    positions = _positions(B, S, tokens)
     memory = _memory(cfg, params, memory)
-    x = embed_apply(cfg, params["embed"], tokens, positions)
+    x = embed_apply(cfg, spmd.at_use(params["embed"], "embed"), tokens, positions)
     x, aux = _stack_forward(cfg, params, x, positions, memory)
     x = apply_norm(cfg, x, params["final_norm"])
-    return unembed_apply(cfg, params["embed"], x), aux
+    return unembed_apply(cfg, spmd.at_use(params["embed"], "embed"), x), aux
 
 
 def distill_loss(cfg: ModelConfig, params: dict, batch: dict):
@@ -323,9 +329,11 @@ def distill_loss(cfg: ModelConfig, params: dict, batch: dict):
     Returns (loss, {"ce": ce, "aux": aux})."""
     logits, aux = forward(cfg, params, batch["tokens"], batch.get("memory"))
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
-    ce = (lse - lab).mean()
+    lse = spmd.logsumexp(logits, dim=-1)
+    # the label's logit keeps its trailing axis: a vocab-sharded DTensor
+    # gather leaves a masked partial sum that must be reduced at that rank
+    lab = torch.gather(logits, -1, batch["labels"][..., None].long())
+    ce = (lse[..., None] - lab).mean()
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -485,13 +493,15 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, tokens, pos: int):
     tokens: (B,1) int; pos: int. Returns (logits (B,1,V), caches), the
     caches written in place."""
     B = tokens.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device)
-    x = embed_apply(cfg, params["embed"], tokens, positions)
+    positions = spmd.like(torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device),
+                          tokens)
+    x = embed_apply(cfg, spmd.at_use(params["embed"], "embed"), tokens, positions)
     shared = params.get("shared_attn")
     for g in range(cfg.num_groups):
-        gp = group_params(params, g)
+        gp = spmd.at_use(group_params(params, g), "groups")
         if shared is not None:
-            x = _shared_attn_decode(cfg, shared, x, _group_cache(caches["shared"], g), pos)
+            x = _shared_attn_decode(cfg, spmd.at_use(shared, "shared_attn"), x,
+                                    _group_cache(caches["shared"], g), pos)
         for i, kind in enumerate(cfg.pattern):
             view = _group_cache(caches[f"b{i}"], g)
             x, new = block_decode(cfg, kind, gp[f"b{i}"], x, view, pos)
@@ -499,7 +509,7 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, tokens, pos: int):
                 if t is not view[k]:
                     view[k].copy_(t)
     x = apply_norm(cfg, x, params["final_norm"])
-    return unembed_apply(cfg, params["embed"], x), caches
+    return unembed_apply(cfg, spmd.at_use(params["embed"], "embed"), x), caches
 
 
 def to_ring(c, out):
@@ -527,7 +537,10 @@ def _store(cfg: ModelConfig, caches: dict, key: str, kind: str, c: dict, g: int,
         if k not in out:
             shape = ((t.shape[0], ring_len(cfg, kind, cache_len)) + tuple(t.shape[2:])
                      if ring else tuple(t.shape))
-            out[k] = torch.zeros((cfg.num_groups,) + shape, dtype=t.dtype, device=t.device)
+            # a DTensor's cache is placed as its first group's value is
+            place = (spmd.operand(t, range(t.ndim), {d: d + 1 for d in range(t.ndim)})[0]
+                     if spmd.is_dtensor(t) else None)
+            out[k] = spmd.zeros((cfg.num_groups,) + shape, t.dtype, t, place)
         if ring:
             to_ring(t, out[k][g])
         else:
@@ -541,20 +554,21 @@ def prefill(cfg: ModelConfig, params: dict, tokens, cache_len: int, memory=None)
     written into a cache allocated once at its final size (the JAX package
     stacks them, then pads or rolls)."""
     B, S = tokens.shape
-    positions = _positions(B, S, tokens.device)
+    positions = _positions(B, S, tokens)
     memory = _memory(cfg, params, memory)
-    x = embed_apply(cfg, params["embed"], tokens, positions)
+    x = embed_apply(cfg, spmd.at_use(params["embed"], "embed"), tokens, positions)
     shared = params.get("shared_attn")
     caches = {}
     for g in range(cfg.num_groups):
-        gp = group_params(params, g)
+        gp = spmd.at_use(group_params(params, g), "groups")
         if shared is not None:
-            x, kv = _shared_attn_apply(cfg, shared, x, positions)
+            x, kv = _shared_attn_apply(cfg, spmd.at_use(shared, "shared_attn"), x,
+                                       positions)
             _store(cfg, caches, "shared", "shared", {"k": kv[0], "v": kv[1]}, g, cache_len)
         for i, kind in enumerate(cfg.pattern):
             x, _, c = block_apply(cfg, kind, gp[f"b{i}"], x, positions=positions,
                                   memory=memory, want_cache=True)
             _store(cfg, caches, f"b{i}", kind, c, g, cache_len)
     x = apply_norm(cfg, x, params["final_norm"])
-    logits = unembed_apply(cfg, params["embed"], x[:, -1:])
+    logits = unembed_apply(cfg, spmd.at_use(params["embed"], "embed"), x[:, -1:])
     return logits, caches

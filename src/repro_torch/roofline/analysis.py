@@ -13,13 +13,22 @@ reads a compiled XLA program's memory and cost analysis: it runs a step
 function on meta tensors (`torch.device("meta")`: shapes and dtypes, no
 storage, no card) under `MetaTrace` and reads the argument bytes, the
 peak of the storage bytes live at once, and the FLOPs of the products it
-ran. The JAX
-package's `collective_bytes_from_hlo` has no counterpart yet: it is the
-next and last module to port (ROADMAP §1 item 5).
+ran.
+
+The collective term's bytes: `collective_bytes_from_hlo` is the JAX
+package's parser of a compiled XLA program's text, copied as it is. The
+port compiles no HLO of its own; the parser is kept to read XLA dumps and
+as the definition of what is counted: each collective's result bytes, a
+loop body's collectives counted trip-count times. Its counterpart,
+`collective_bytes_from_trace`, runs a step on DTensors over a fake
+process group (`launch.mesh.fake_mesh`) under `CollectiveTrace` and
+counts, by the same five kinds and the same convention, every collective
+that PyTorch's partitioner issues, each time it is issued.
 """
 from __future__ import annotations
 
 import math
+import re
 import weakref
 
 import torch
@@ -28,7 +37,8 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels.flash_attention import ops as attn_ops
-from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16
+from repro_torch.launch.mesh import (GPUS_PER_NODE, HBM_BW, IB_BW, NVLINK_BW,
+                                     PEAK_FLOPS_BF16)
 
 # the CUDA caching allocator rounds every block up to 512 bytes, and
 # torch.cuda.max_memory_allocated counts the rounded blocks
@@ -219,16 +229,286 @@ def trace_facts(fn, *args) -> dict:
             "ops": trace.ops, "out": out}
 
 
+# ---------------------------------------------------------------------------
+# collective bytes: XLA's HLO text (the JAX package's parser, as it is) and
+# the port's own traced step
+# ---------------------------------------------------------------------------
+
+_DTYPE_BYTES = {
+    "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2,
+    "s32": 4, "u32": 4, "s64": 8, "u64": 8,
+    "f8e4m3fn": 1, "f8e5m2": 1, "bf16": 2, "f16": 2, "f32": 4, "f64": 8,
+    "c64": 8, "c128": 16,
+}
+
+_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")
+
+_SHAPE_RE = re.compile(r"(\w+)\[([\d,]*)\]")
+
+
+def _shape_bytes(dt: str, dims: str) -> int:
+    if dt not in _DTYPE_BYTES:
+        return 0
+    n = 1
+    if dims:
+        for d in dims.split(","):
+            n *= int(d)
+    return n * _DTYPE_BYTES[dt]
+
+
+def _line_collective(stripped: str):
+    """(kind, bytes) for a collective-op HLO line, else None."""
+    for kind in _COLLECTIVES:
+        if f" {kind}(" in stripped or f" {kind}-start(" in stripped:
+            eq = stripped.find("=")
+            if eq < 0:
+                return None
+            rhs = stripped[eq + 1 :]
+            shapes = _SHAPE_RE.findall(rhs.split(kind)[0])
+            return kind, sum(_shape_bytes(dt, dims) for dt, dims in shapes)
+    return None
+
+
+_COMP_RE = re.compile(r"^(?:ENTRY\s+)?%?([\w.\-]+)\s*\(.*\)\s*->")
+_WHILE_RE = re.compile(r"while\(.*?\), condition=%?([\w.\-]+), body=%?([\w.\-]+)")
+_CONST_RE = re.compile(r"constant\((\d+)\)")
+
+
+def _parse_computations(hlo_text: str) -> dict:
+    """comp name -> list of body lines."""
+    comps: dict = {}
+    cur = None
+    for line in hlo_text.splitlines():
+        if not line.startswith(" ") and ("->" in line) and line.rstrip().endswith("{"):
+            m = _COMP_RE.match(line.strip())
+            if m:
+                cur = m.group(1)
+                comps[cur] = []
+                continue
+        if line.startswith("}"):
+            cur = None
+            continue
+        if cur is not None:
+            comps[cur].append(line.strip())
+    return comps
+
+
+def collective_bytes_from_hlo(hlo_text: str) -> dict:
+    """Collective result bytes, scan-aware: collectives inside a while-loop
+    body count once per iteration (trip count = the loop-condition constant).
+    HLO cost analysis can't do this (it visits loop bodies once); GSPMD keeps
+    our FSDP all-gathers inside the layer scan, so the multiplier matters.
+
+    The port has no HLO of its own: this is the JAX package's parser, kept
+    to read XLA dumps and as the definition of what is counted, each
+    collective's result bytes, loop bodies counted trip-count times
+    (`collective_bytes_from_trace` is the port's counterpart)."""
+    comps = _parse_computations(hlo_text)
+    own = {}
+    whiles = {}  # comp -> list[(cond, body)]
+    for name, lines in comps.items():
+        totals = {k: 0 for k in _COLLECTIVES}
+        counts = {k: 0 for k in _COLLECTIVES}
+        wl = []
+        for ln in lines:
+            got = _line_collective(ln)
+            if got:
+                totals[got[0]] += got[1]
+                counts[got[0]] += 1
+            m = _WHILE_RE.search(ln)
+            if m:
+                wl.append((m.group(1), m.group(2)))
+        own[name] = (totals, counts)
+        whiles[name] = wl
+
+    def trip_count(cond: str) -> int:
+        consts = [int(c) for ln in comps.get(cond, []) for c in _CONST_RE.findall(ln)]
+        return max(consts) if consts else 1
+
+    import functools
+
+    @functools.lru_cache(maxsize=None)
+    def total(name: str):
+        t = dict(own[name][0])
+        c = dict(own[name][1])
+        for cond, body in whiles.get(name, []):
+            n = trip_count(cond)
+            bt, bc = total(body)
+            for k in _COLLECTIVES:
+                t[k] += n * bt[k]
+                c[k] += n * bc[k]
+        return t, c
+
+    entry = None
+    for line in hlo_text.splitlines():
+        if line.startswith("ENTRY"):
+            m = _COMP_RE.match(line.strip()[len("ENTRY "):].strip())
+            if m:
+                entry = m.group(1)
+            break
+    if entry is None:  # fall back: flat count
+        entry = max(comps, key=lambda n: len(comps[n])) if comps else None
+    if entry is None:
+        z = {k: 0 for k in _COLLECTIVES}
+        return {"totals": z, "counts": z, "sum": 0}
+    totals, counts = total(entry)
+    return {"totals": totals, "counts": counts, "sum": int(sum(totals.values()))}
+
+
+# PyTorch's collectives by operator name, as DTensor and functional
+# collectives issue them, mapped to the HLO kinds above (point-to-point
+# sends and receives are XLA's collective-permutes); "" marks an operator
+# of those namespaces that moves nothing (a wait, an autograd wrapper, a
+# group lookup). Any other operator of these namespaces (a broadcast, a
+# c10d op) raises.
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd", "c10d",
+                         "_dtensor")
+TORCH_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_tensor_out": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+    "isend": "collective-permute",
+    "irecv": "collective-permute",
+    "batch_p2p_ops": "collective-permute",
+    "wait_tensor": "",
+    "_wrap_tensor_autograd": "",
+    "mesh_get_process_group": "",
+}
+
+
+def collective_kind(func) -> str | None:
+    """The HLO kind of a PyTorch collective operator (`TORCH_COLLECTIVES`),
+    "" for one that moves nothing, None for an operator outside the
+    collective namespaces. An unknown operator of those namespaces
+    raises: no collective is dropped."""
+    if func.namespace not in COLLECTIVE_NAMESPACES:
+        return None
+    name = func._schema.name.split("::")[-1]
+    if name not in TORCH_COLLECTIVES:
+        raise NotImplementedError(f"unknown collective {func}: no kind to count it by")
+    return TORCH_COLLECTIVES[name]
+
+
+def _group_name(func, args, kwargs) -> str:
+    """The name of the process group a collective operator runs over (its
+    ``group_name`` argument, a name or a group)."""
+    for i, a in enumerate(func._schema.arguments):
+        if a.name == "group_name":
+            g = kwargs["group_name"] if "group_name" in kwargs else args[i]
+            return g if isinstance(g, str) else g.group_name
+    raise NotImplementedError(f"{func} names no process group")
+
+
+class CollectiveTrace(MetaTrace):
+    """`MetaTrace` over a step that runs on DTensors: each DTensor
+    operation is handed back to DTensor (``NotImplemented``), which
+    redistributes its operands with collectives and runs the operation on
+    the local shards; this mode then sees the local operations and the
+    collectives. ``totals`` and ``counts`` hold, by `_COLLECTIVES` kind,
+    the result bytes (one rank's, as XLA's HLO states them) and the
+    number of every collective issued (`collective_kind`); ``by_group``
+    the result bytes by the name of the process group each ran over;
+    ``issued`` lists them in order as (operator, kind, bytes). The local
+    operations are what `MetaTrace` makes of them: ``peak`` is then one
+    rank's."""
+
+    def __init__(self):
+        super().__init__()
+        self.totals = {k: 0 for k in _COLLECTIVES}
+        self.counts = {k: 0 for k in _COLLECTIVES}
+        self.by_group: dict = {}
+        self.issued: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kind = collective_kind(func)
+        if kind is None:
+            return super().__torch_dispatch__(func, types, args, kwargs)
+        self.ops += 1
+        out = func(*args, **(kwargs or {}))
+        if kind:
+            nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(out)
+                         if isinstance(t, torch.Tensor))
+            self.totals[kind] += nbytes
+            self.counts[kind] += 1
+            group = _group_name(func, args, kwargs or {})
+            self.by_group[group] = self.by_group.get(group, 0) + nbytes
+            self.issued.append((str(func), kind, nbytes))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.track(t)
+        return out
+
+    def result(self) -> dict:
+        """`collective_bytes_from_hlo`'s dict: ``totals``, ``counts`` and
+        their ``sum`` of bytes."""
+        return {"totals": dict(self.totals), "counts": dict(self.counts),
+                "sum": int(sum(self.totals.values()))}
+
+
+def collective_bytes_from_trace(fn, *args) -> dict:
+    """Run ``fn(*args)``, a step on DTensors whose local shards are meta
+    tensors, under `CollectiveTrace` and return its collectives as
+    `collective_bytes_from_hlo` returns XLA's: ``{"totals", "counts",
+    "sum"}``, result bytes by kind, counted each time a collective is
+    issued."""
+    trace = CollectiveTrace()
+    with trace:
+        fn(*args)
+    return trace.result()
+
+
 def extrapolate_depth(c1: float, c2: float, n_groups: int) -> float:
     """Linear in depth: total(G) = c1 + (G-1)*(c2-c1)."""
     return c1 + (n_groups - 1) * (c2 - c1)
 
 
+def collective_seconds(nbytes: float, ranks) -> float:
+    """The least time in which one device of the process group ``ranks``
+    (global ranks; a mesh's ranks fill nodes of `GPUS_PER_NODE` cards in
+    order) takes in ``nbytes`` of collective result bytes: at one card's
+    NVLink rate, or, where the group spans k > 1 nodes with g of its
+    cards on each, the (k - 1) / k of the bytes that lie on other nodes
+    coming in over the g InfiniBand ports (`IB_BW` each) that its node's
+    members share, whichever is slower. A group of one card on each of
+    its nodes is bound by the port; 16 consecutive ranks over two nodes
+    by NVLink."""
+    ranks = list(ranks)
+    k = len({r // GPUS_PER_NODE for r in ranks})
+    t = nbytes / NVLINK_BW
+    if k > 1:
+        t = max(t, nbytes * (k - 1) / (k * (len(ranks) / k) * IB_BW))
+    return t
+
+
 def roofline_terms(flops: float, hbm_bytes: float, collective_bytes: float,
-                   chips: int) -> dict:
+                   chips: int, *, collective_s: float | None = None) -> dict:
+    """The step's lower bounds at the data sheet's peaks: ``flops`` and
+    ``hbm_bytes`` are the whole step's over ``chips`` cards, so each is
+    priced at ``chips`` cards' rate; ``collective_bytes`` are one
+    device's (as XLA's per-device HLO and `CollectiveTrace` count them),
+    so they are priced at one card's link rate: ``collective_s`` where
+    the caller priced them by the links each group crosses
+    (`collective_seconds`), else one card's NVLink rate. (The JAX
+    package divides one device's collective bytes by ``chips`` again:
+    ROADMAP F19.)"""
     t_compute = flops / (chips * PEAK_FLOPS_BF16)
     t_memory = hbm_bytes / (chips * HBM_BW)
-    t_collective = collective_bytes / (chips * NVLINK_BW)
+    t_collective = (collective_bytes / NVLINK_BW if collective_s is None
+                    else collective_s)
     terms = {"compute": t_compute, "memory": t_memory, "collective": t_collective}
     return {
         "t_compute_s": t_compute,

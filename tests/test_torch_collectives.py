@@ -1,0 +1,334 @@
+"""The dry run's collective term: the port's copy of the JAX package's HLO
+parser (`roofline.analysis.collective_bytes_from_hlo`), and its own count,
+`collective_bytes_from_trace` over a step traced on DTensors
+(`launch.dryrun._trace_collectives`), held against the parser on hand-made
+HLO, against counts made by hand, and against XLA's own count of the JAX
+package's compiled steps.
+
+XLA's side compiles in a child process (`scripts/collectives_vs_xla.py`,
+which prints the same comparison): it needs eight forced host devices,
+which a JAX process fixes at its first use. The child starts with this
+module's first test and compiles while the port traces run here.
+"""
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.roofline.analysis import collective_bytes_from_hlo as collective_bytes_jax
+from repro_torch import spmd
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.grad_norm.ops import grad_norm
+from repro_torch.kernels.masked_adam import ops as adam_ops
+from repro_torch.kernels.rmsnorm import ops as norm_ops
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import MeshShape, fake_mesh
+from repro_torch.launch.shardings import placements_for, rules_for
+from repro_torch.models.registry import build
+from repro_torch.roofline import analysis
+
+# the comparison's compiles and traces (one child process compiles the JAX
+# package's steps on eight forced host devices)
+_spec = importlib.util.spec_from_file_location(
+    "collectives_vs_xla",
+    Path(__file__).resolve().parents[1] / "scripts" / "collectives_vs_xla.py")
+vs_xla = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(vs_xla)
+
+ARCHS = vs_xla.ARCHS
+MESH = MeshShape(*vs_xla.MESH)
+B, S = vs_xla.B, vs_xla.S
+KINDS = {k: dict(kind=k, seq_len=S, global_batch=B) for k in vs_xla.KINDS}
+# Two partitioners choose their collectives differently: XLA's GSPMD and
+# PyTorch's DTensor place each activation and weight by their own costs.
+# The port's sum is held within this factor of XLA's; the ratios measured
+# at these shapes lie between 0.81 and 1.41 for the train steps; RWKV6's
+# decode step is at 0.48, and the other four decode steps lie outside,
+# which F18 explains (`OUTSIDE`: 0.17, 0.09, 0.12, 0.11).
+FACTOR = 3.0
+# ROADMAP F18: decode steps. XLA all-gathers the FSDP shards of the weights
+# inside its layer loop; the port leaves the weights where they lie and
+# moves the step's four tokens. Every decode step's all-gather bytes are at
+# most XLA's and its all-reduce bytes within FACTOR of XLA's (0.65-2.29).
+OUTSIDE = {("gemma2_9b", "decode"), ("mixtral_8x22b", "decode"),
+           ("whisper_large_v3", "decode"), ("zamba2_7b", "decode")}
+_cfg = vs_xla.smoke_cfg
+
+
+@pytest.fixture(scope="module")
+def xla_child(tmp_path_factory):
+    proc = vs_xla.start_xla(str(tmp_path_factory.mktemp("hlo")))
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(autouse=True)
+def _start_xla_child(xla_child):
+    """The child compiles from the module's first test on."""
+
+
+@pytest.fixture(scope="module")
+def xla_hlo(xla_child):
+    """{"arch.kind": XLA's compiled HLO text}."""
+    return vs_xla.xla_texts(xla_child)
+
+
+# ---------------------------------------------------------------------------
+# The parser, copied
+# ---------------------------------------------------------------------------
+
+_FLAT = """
+HloModule test
+
+ENTRY %main (p: f32[8,16]) -> f32[8,16] {
+  %p = f32[8,16] parameter(0)
+  %ag = f32[16,16] all-gather(%p), replica_groups={}
+  %ar = f32[8,16]{1,0} all-reduce(%p), to_apply=%add
+  ROOT %out = f32[8,16] add(%ar, %ar)
+}
+"""
+
+_SCAN = """
+HloModule test
+
+%body.1 (arg: (s32[], f32[4])) -> (s32[], f32[4]) {
+  %arg = (s32[], f32[4]) parameter(0)
+  %ag = f32[8] all-gather(%gte), replica_groups={}
+  ROOT %t = (s32[], f32[4]) tuple(%i, %gte)
+}
+
+%cond.1 (arg: (s32[], f32[4])) -> pred[] {
+  %arg = (s32[], f32[4]) parameter(0)
+  %c = s32[] constant(7)
+  ROOT %lt = pred[] compare(%i, %c), direction=LT
+}
+
+ENTRY %main (p: f32[4]) -> f32[4] {
+  %p = f32[4] parameter(0)
+  %w = (s32[], f32[4]) while(%init), condition=%cond.1, body=%body.1
+  ROOT %out = f32[4] get-tuple-element(%w), index=1
+}
+"""
+
+
+@pytest.mark.parametrize("hlo,kind,nbytes,count", [
+    (_FLAT, "all-gather", 16 * 16 * 4, 1), (_SCAN, "all-gather", 7 * 8 * 4, 7)],
+    ids=["flat", "scan_aware"])
+def test_parser_is_the_jax_packages(hlo, kind, nbytes, count):
+    got = analysis.collective_bytes_from_hlo(hlo)
+    assert got == collective_bytes_jax(hlo)
+    assert list(got) == ["totals", "counts", "sum"]
+    assert got["totals"][kind] == nbytes and got["counts"][kind] == count
+
+
+# ---------------------------------------------------------------------------
+# The trace's counter
+# ---------------------------------------------------------------------------
+
+
+def test_trace_counts_a_hand_built_chain():
+    """Five redistributions of an (8, 16) float32 DTensor on the (2, 4)
+    mesh, each one collective of known kind and result bytes (one rank's:
+    an all-gather's result is the group's shards, a reduce-scatter's one
+    shard); the waits that follow each are not counted."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    with fake_mesh(MESH) as mesh:
+        def dt(*placements):
+            return spmd.from_meta((8, 16), torch.float32, mesh, placements)
+
+        def chain():
+            dt(Shard(0), Replicate()).redistribute(placements=[Replicate(), Replicate()])
+            dt(Replicate(), Shard(1)).redistribute(placements=[Replicate(), Replicate()])
+            dt(Partial(), Replicate()).redistribute(placements=[Replicate(), Replicate()])
+            dt(Partial(), Replicate()).redistribute(placements=[Shard(0), Replicate()])
+            dt(Replicate(), Shard(0)).redistribute(placements=[Replicate(), Shard(1)])
+
+        got = analysis.collective_bytes_from_trace(chain)
+    whole = 8 * 16 * 4
+    assert got["counts"] == {"all-gather": 2, "all-reduce": 1, "reduce-scatter": 1,
+                             "all-to-all": 1, "collective-permute": 0}
+    assert got["totals"] == {"all-gather": 2 * whole, "all-reduce": whole,
+                             "reduce-scatter": whole // 2, "all-to-all": whole // 4,
+                             "collective-permute": 0}
+    assert got["sum"] == sum(got["totals"].values())
+    assert list(got) == ["totals", "counts", "sum"]
+
+
+def test_an_unknown_collective_raises():
+    """A collective operator that has no kind to count it by raises; a
+    wait does not count."""
+    x = torch.empty(8, device="meta")
+    with fake_mesh(MESH):
+        assert analysis.collective_kind(torch.ops._c10d_functional.wait_tensor.default) == ""
+        assert analysis.collective_kind(torch.ops.aten.add.Tensor) is None
+        with pytest.raises(NotImplementedError, match="unknown collective"):
+            with analysis.CollectiveTrace():
+                torch.ops._c10d_functional.broadcast(x, 0, "0")
+
+
+def test_placements_follow_the_specs():
+    from torch.distributed.tensor import Replicate, Shard
+
+    with fake_mesh(MeshShape(("pod", "data", "model"), (2, 2, 2))) as mesh:
+        assert placements_for((("pod", "data"), None, "model"), mesh) == [
+            Shard(0), Shard(0), Shard(2)]
+        assert placements_for((None, None), mesh) == [Replicate()] * 3
+        # ceil-sized chunks, as XLA pads: 5 rows over 4 devices
+        t = spmd.from_meta((5, 3), torch.float32, mesh,
+                           placements_for((("pod", "data"), None), mesh))
+        assert tuple(t.to_local().shape) == (2, 3) and tuple(t.shape) == (5, 3)
+    with fake_mesh(MeshShape(("data", "model"), (4, 1))) as mesh:
+        # a mesh dim of one device shards nothing
+        assert placements_for(("data", "model"), mesh) == [Shard(0), Replicate()]
+
+
+# ---------------------------------------------------------------------------
+# The wrappers on local shards
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_run_on_local_shards():
+    """Each kernel wrapper's DTensor branch keeps the placements its
+    kernel is local along and gathers the rest: RMSNorm's rows over
+    "data" stay and its d_model over "model" is gathered (one
+    all-gather); attention keeps batch and heads (nothing moves); masked
+    Adam steps each shard where it lies; the gradient norm is one
+    all-reduce of one float32."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    bf16 = torch.bfloat16
+    with fake_mesh(MESH) as mesh:
+        x = spmd.from_meta((4, 8, 256), bf16, mesh, [Shard(0), Shard(2)])
+        w = spmd.from_meta((256,), bf16, mesh, [Replicate(), Replicate()])
+        q = spmd.from_meta((4, 64, 4, 2, 64), bf16, mesh, [Shard(0), Shard(2)])
+        k = spmd.from_meta((4, 64, 4, 64), bf16, mesh, [Shard(0), Shard(2)])
+        p = spmd.from_meta((1, 64, 128), torch.float32, mesh, [Shard(1), Replicate()])
+        b = spmd.from_meta((1,), torch.float32, mesh, [Replicate(), Replicate()])
+        mask = spmd.from_meta((1, 64, 128), torch.bool, mesh, [Shard(1), Replicate()])
+        n0 = (norm_ops.launches, attn_ops.launches, adam_ops.launches)
+        with analysis.CollectiveTrace() as tr:
+            y = norm_ops.rms_norm(x, w)
+            assert y.placements == (Shard(0), Replicate())
+            assert tr.counts["all-gather"] == 1
+            o = attn_ops.flash_attention(q, k, k)
+            assert o.placements == q.placements and tuple(o.shape) == tuple(q.shape)
+            assert sum(tr.counts.values()) == 1
+            outs = adam_ops.masked_adam_3d(p, p, p, p, mask, b, b1=0.9, b2=0.999, eps=1e-8)
+            assert all(t.placements == p.placements for t in outs)
+            assert sum(tr.counts.values()) == 1
+            gn = grad_norm([p, spmd.from_meta((1, 8, 128), torch.float32, mesh,
+                                              [Replicate(), Replicate()])])
+            assert gn.placements == (Replicate(), Replicate()) and gn.shape == ()
+        assert tr.counts["all-reduce"] == 1 and tr.totals["all-reduce"] == 4
+        assert (norm_ops.launches, attn_ops.launches, adam_ops.launches) == n0
+
+
+# ---------------------------------------------------------------------------
+# An FSDP step worked out by hand
+# ---------------------------------------------------------------------------
+
+
+def _nbytes(shape, dtype=torch.float32) -> int:
+    n = dtype.itemsize
+    for d in shape:
+        n *= d
+    return n
+
+
+def test_fsdp_step_is_the_account_from_the_specs():
+    """Gemma 2B's smoke config (remat on, float32, clipped) on a (4, 1)
+    mesh: every weight is sharded over "data" on its d_model axis (FSDP)
+    and nothing else moves but the batch. Worked out from the specs:
+
+    * all-gathers: each group's sharded weights, whole, at every use: the
+      forward and the remat recompute (2 per group), and the embedding at
+      its two uses (embed and unembed);
+    * reduce-scatters: one shard of each group's sharded weights (the
+      recompute's gradient; the forward's is not kept) and one of the
+      embedding per use;
+    * all-reduces: the norm scales' gradients (replicated) and the clip's
+      norm, one float32;
+    * nothing else: the batch stays where it lies.
+    """
+    cfg = _cfg("gemma_2b")
+    mesh, batch = MeshShape(("data", "model"), (4, 1)), 8
+    model = build(cfg)
+    rules = rules_for(cfg, mesh, shape_kind="train")
+    metas, specs = model.metas(), model.pspecs(rules)
+    fsdp = []  # each group's weights, as one group uses them
+    for part in ("attn", "mlp"):
+        for name, m in metas["groups"]["b0"][part].items():
+            spec = specs["groups"]["b0"][part][name]
+            assert "data" in [a for e in spec if e for a in ((e,) if isinstance(e, str) else e)]
+            fsdp.append(m.shape[1:])
+    norms = [metas["groups"]["b0"][name].shape[1:] for name in ("ln1", "ln2")]
+    assert set(metas["groups"]["b0"]) == {"attn", "mlp", "ln1", "ln2"}
+    G, n = cfg.num_groups, mesh.shape[0]
+    tok = metas["embed"]["tok"].shape
+    gathered = 2 * G * sum(_nbytes(s) for s in fsdp) + 2 * _nbytes(tok)
+    scattered = (G * sum(_nbytes(s) for s in fsdp) + 2 * _nbytes(tok)) // n
+    reduced = G * sum(_nbytes(s) for s in norms) + _nbytes(metas["final_norm"].shape) + 4
+
+    got = dryrun._trace_collectives(cfg, mesh, dict(kind="train", seq_len=S,
+                                                    global_batch=batch),
+                                    frozenset(), clip=1.0)
+    assert got["totals"]["all-gather"] == gathered
+    assert got["counts"]["all-gather"] == 2 * G * len(fsdp) + 2
+    assert got["totals"]["reduce-scatter"] == scattered
+    assert got["counts"]["reduce-scatter"] == G * len(fsdp) + 2
+    assert got["totals"]["all-reduce"] == reduced
+    assert got["counts"]["all-reduce"] == G * len(norms) + 2
+    assert got["sum"] == gathered + scattered + reduced
+
+
+def test_one_device_issues_nothing():
+    got = dryrun._trace_collectives(_cfg("gemma_2b"), MeshShape(("data", "model"), (1, 1)),
+                                    KINDS["train"], frozenset())
+    assert got["sum"] == 0 and set(got["counts"].values()) == {0} and got["ops"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Against XLA
+# ---------------------------------------------------------------------------
+
+_PORT: dict = {}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_counts_the_step(arch, kind):
+    """The port's count of each step on the (2, 4) mesh: collectives of
+    every kind the step needs, nothing that raises."""
+    got = vs_xla.port_count(arch, kind)
+    _PORT[(arch, kind)] = got
+    assert got["sum"] > 0 and got["counts"]["all-gather"] > 0
+    assert got["sum"] == sum(got["totals"].values())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_parser_matches_jax_on_compiled_steps(xla_hlo, arch):
+    for kind in KINDS:
+        text = xla_hlo[f"{arch}.{kind}"]
+        got = analysis.collective_bytes_from_hlo(text)
+        assert got == collective_bytes_jax(text)
+        assert got["sum"] > 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_sum_is_within_a_factor_of_xla(xla_hlo, arch, kind):
+    port = _PORT.get((arch, kind)) or vs_xla.port_count(arch, kind)
+    xla = analysis.collective_bytes_from_hlo(xla_hlo[f"{arch}.{kind}"])
+    ratio = port["sum"] / xla["sum"]
+    if kind == "decode":
+        # F18: XLA gathers the weights, the port moves the tokens
+        assert port["totals"]["all-gather"] <= xla["totals"]["all-gather"]
+        ar = port["totals"]["all-reduce"] / xla["totals"]["all-reduce"]
+        assert 1 / FACTOR <= ar <= FACTOR, ar
+    if (arch, kind) in OUTSIDE:
+        return
+    assert 1 / FACTOR <= ratio <= FACTOR, (ratio, port["totals"], xla["totals"])

@@ -15,7 +15,10 @@ against the JAX package's step functions and against counts made by hand.
 * The CLI: one pair by name, and Llama 3 405B's train_4k on 16 x 16,
   whose per-device argument bytes equal the JAX partition specs' shard
   bytes computed here; on one card they are the params, the flat
-  optimizer's state, the mask and the batch.
+  optimizer's state, the mask and the batch. The collective term: zero on
+  one card, a positive count priced into the roofline on 256 (Gemma 2B),
+  absent (not 0) under ``--proof-only``; the fake process group the
+  sharded trace opens refuses a live group and leaves none behind.
 """
 import math
 
@@ -40,7 +43,8 @@ from repro_torch.kernels.masked_adam import ops as adam_ops
 from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.launch import dryrun
 from repro_torch.launch import input_specs as ispec
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import (NVLINK_BW, MeshShape, fake_mesh, make_local_mesh,
+                                     make_production_mesh)
 from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
 from repro_torch.models import moe
 from repro_torch.models.registry import build
@@ -372,13 +376,39 @@ class _JaxMesh:
         self.devices = type("devices", (), {"shape": m.shape})
 
 
+def _terms_hold(facts, mesh):
+    """The roofline's three terms are `roofline_terms`' own for the pair's
+    FLOPs, bytes and collective bytes, these priced by mesh axis at the
+    links of rank 0's group on that axis (the mesh's ranks in row-major
+    order), and the bottleneck is the largest."""
+    link_s = 0.0
+    for ax, nbytes in (facts["collective_axes"] or {}).items():
+        i = mesh.axis_names.index(ax)
+        stride = math.prod(mesh.shape[i + 1:])
+        link_s += analysis.collective_seconds(nbytes, range(0, stride * mesh.shape[i], stride))
+    assert sum((facts["collective_axes"] or {}).values()) == facts["collective_bytes"]
+    want = analysis.roofline_terms(facts["flops"], facts["bytes"],
+                                   facts["collective_bytes"], facts["chips"],
+                                   collective_s=link_s)
+    for k in ("t_compute_s", "t_memory_s", "t_collective_s", "step_time_lb_s"):
+        assert facts[k] == want[k], k
+    terms = {"compute": facts["t_compute_s"], "memory": facts["t_memory_s"],
+             "collective": facts["t_collective_s"]}
+    assert facts["bottleneck"] == max(terms, key=terms.get)
+
+
 def test_full_size_pair_no_card_holds():
     """Llama 3 405B's train_4k on 16 x 16: the per-device argument bytes
     are the JAX partition specs' shard bytes of the params, the flat
     optimizer's g (bf16), m, v and u (float32) and mask (bool), the step
-    count and the batch; on one card the same sum unsharded."""
+    count and the batch; on one card the same sum unsharded, and no
+    collective. Its sharded trace takes a minute, so the 256-card pair is
+    traced for memory only (``proof_only``): no collective term, never
+    one priced at 0. Gemma 2B's train_4k on 16 x 16 is traced for its
+    collectives: a positive count, priced into the roofline."""
     mesh = make_production_mesh()
-    facts = dryrun.lower_pair("llama3_405b", "train_4k", mesh, verbose=False)
+    facts = dryrun.lower_pair("llama3_405b", "train_4k", mesh, verbose=False,
+                              proof_only=True)
     cfg = get_config_jax("llama3_405b")
     model = build_jax(cfg)
     rules = rules_for_jax(cfg, _JaxMesh(mesh), shape_kind="train")
@@ -390,9 +420,58 @@ def test_full_size_pair_no_card_holds():
     assert facts["device_arg_bytes"] == want
     assert facts["local_batch"] == 16 and facts["chips"] == 256
     assert not facts["fits_h100"] and facts["device_temp_bytes"] > 0
-    assert facts["collective_bytes"] is None and facts["bottleneck"] == "compute"
+    assert facts["collective_bytes"] is None and facts["t_collective_s"] is None
+    assert facts["collective_counts"] is None and facts["bottleneck"] == "compute"
+    assert facts["step_time_lb_s"] == max(facts["t_compute_s"], facts["t_memory_s"])
 
     one = dryrun.lower_pair("llama3_405b", "train_4k", make_local_mesh(), verbose=False)
     n = 403_752_042_496
     assert one["device_arg_bytes"] == n * (2 + 2 + 4 + 4 + 4 + 1) + 4 + 2 * 256 * 4096 * 4
     assert one["device_arg_parts"]["params"] == n * 2 == model.num_params() * 2
+    assert one["collective_bytes"] == 0 and set(one["collective_counts"].values()) == {0}
+    assert one["t_collective_s"] == 0.0
+    _terms_hold(one, make_local_mesh())
+
+    small = dryrun.lower_pair("gemma_2b", "train_4k", mesh, verbose=False)
+    assert small["collective_bytes"] > 0 and small["t_collective_s"] > 0
+    assert small["collective_bytes"] == sum(small["collective_totals"].values())
+    assert small["collective_counts"]["all-gather"] > 0
+    assert small["collective_counts"]["reduce-scatter"] > 0
+    assert set(small["collective_axes"]) <= {"data", "model"}
+    # one device's bytes, never divided by the 256 cards
+    assert small["t_collective_s"] >= small["collective_bytes"] / NVLINK_BW
+    _terms_hold(small, mesh)
+
+
+def test_proof_only_leaves_the_sharded_trace_out(monkeypatch, capsys):
+    def refuse(*a, **k):
+        raise AssertionError("the sharded trace ran")
+
+    monkeypatch.setattr(dryrun, "_trace_collectives", refuse)
+    assert dryrun.main(["--arch", "gemma_2b", "--shape", "decode_32k", "--proof-only"]) == 0
+    out = capsys.readouterr().out
+    assert "coll=not traced" in out and "dry-run: 1 ok, 0 failed" in out
+
+
+def test_fake_mesh_refuses_a_live_group_and_leaves_none():
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    mesh = MeshShape(("data", "model"), (2, 2))
+    with fake_mesh(mesh) as dmesh:
+        assert dist.is_initialized() and dist.get_world_size() == 4
+        assert dmesh.mesh_dim_names == ("data", "model") and dmesh.device_type == "cuda"
+    assert not dist.is_initialized()
+    with pytest.raises(ZeroDivisionError):
+        with fake_mesh(mesh):
+            1 / 0
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        with pytest.raises(RuntimeError, match="already initialised"):
+            with fake_mesh(mesh):
+                pass
+        assert dist.get_world_size() == 2
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()

@@ -108,13 +108,15 @@ def test_h100_constants():
 @pytest.mark.parametrize("flops,nbytes,coll,chips,bottleneck", [
     (989e12, 1e9, 1e6, 1, "compute"),      # 1 s of compute
     (1e12, 6.7e12, 1e6, 1, "memory"),      # 2 s of HBM
-    (1e12, 1e9, 3.6e12, 4, "collective"),  # 2 s of NVLink on 4 cards
+    (1e12, 1e9, 3.6e12, 4, "collective"),  # 8 s of one card's NVLink
 ])
 def test_roofline_terms_bottleneck(flops, nbytes, coll, chips, bottleneck):
     t = analysis.roofline_terms(flops, nbytes, coll, chips)
     assert t["t_compute_s"] == flops / (chips * 989e12)
     assert t["t_memory_s"] == nbytes / (chips * 3.35e12)
-    assert t["t_collective_s"] == coll / (chips * 450e9)
+    # one device's collective bytes at one card's link rate, not divided
+    # by the cards again (the JAX package's convention, ROADMAP F19)
+    assert t["t_collective_s"] == coll / 450e9
     assert t["bottleneck"] == bottleneck
     assert t["step_time_lb_s"] == max(t["t_compute_s"], t["t_memory_s"],
                                       t["t_collective_s"])
@@ -123,6 +125,24 @@ def test_roofline_terms_bottleneck(flops, nbytes, coll, chips, bottleneck):
     assert j["t_compute_s"] * mesh_jax.PEAK_FLOPS_BF16 == pytest.approx(
         t["t_compute_s"] * mesh.PEAK_FLOPS_BF16)
     assert j["t_memory_s"] * mesh_jax.HBM_BW == pytest.approx(t["t_memory_s"] * mesh.HBM_BW)
+
+
+def test_node_constants():
+    assert (mesh.GPUS_PER_NODE, mesh.IB_BW) == (8, 50e9)
+
+
+@pytest.mark.parametrize("ranks,seconds", [
+    (range(8), 1 / 450e9),                   # one node: NVLink
+    (range(16), 1 / 450e9),                  # 8 + 8 over two nodes' 8 ports each
+    (range(0, 256, 16), 15 / 16 / 50e9),     # one card on each of 16 nodes
+    ((0, 256), 1 / 2 / 50e9),                # the two pods' rank 0
+    (range(0, 32, 2), 3 / 4 / 4 / 50e9),     # 4 on each of 4 nodes: 3/4 over 4 ports
+])
+def test_collective_seconds_by_the_links_a_group_crosses(ranks, seconds):
+    got = analysis.collective_seconds(1e9, ranks)
+    assert got == pytest.approx(1e9 * seconds, rel=1e-12)
+    t = analysis.roofline_terms(0.0, 0.0, 1e9, 256, collective_s=got)
+    assert t["t_collective_s"] == got and t["bottleneck"] == "collective"
 
 
 def test_kernel_bounds_equal_jax():
