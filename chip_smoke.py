@@ -148,15 +148,20 @@ its own:
    on the run's own inputs, within ``HANDOFF_BLOCK_BOUND``; the logits of
    the first decode step against ``forward``'s over the same 8,001 tokens,
    printed (the random init's attention is a hard max, see
-   ``HANDOFF_LOGITS_BOUND``). The weights are dropped (their bytes checked
+   ``HANDOFF_LOGITS_BOUND``). Then, on the same weights with ``wq``,
+   ``wk`` and ``wv`` rescaled in place to fan-in d_model
+   (``rescale_attention``, ROADMAP F12), the hand-off again with the logits
+   held within ``HANDOFF_LOGITS_BOUND`` too, and the shared block's q, k,
+   v taken again. The weights are dropped (their bytes checked
    freed); the shares of the analytic bound; K3 on the run's first Mamba2
    inner norm input (2, 8000, 7168) and its last position (its split-row
    variant at both), and K4 at head dim 112 (2, 8000, 32, 1, 112) on
    N(0, 1) inputs within one bf16 ulp of its plain version and on the
    run's own q, k, v against float64 as for Moonlight, timed beside its
-   bound and ``scaled_dot_product_attention(is_causal=True)``; then the
-   hand-off again with the same draws in float32 (the blocks within
-   1e-4);
+   bound and ``scaled_dot_product_attention(is_causal=True)``, and on the
+   rescaled run's q, k, v within one bf16 ulp of its plain version at
+   every output (``k4_rescaled``); then the hand-off again with the same
+   draws in float32 (the blocks within 1e-4);
 10. the recurrent serving path: RWKV6-3B at full width and depth (32
    layers, d_model 2,560, 40 wkv heads of 64; 2,690,501,120 random bf16
    parameters), the same batch, prompts and decode steps: K3 32 launches
@@ -175,14 +180,16 @@ its own:
    queries over 1,500 frames in the decoder), all bf16, none in decode;
    K3 none (LayerNorm). The hand-off as for Zamba2, with the encoded
    frames, each block's cross cache from its prefill read in its decode;
-   the logits printed (the init's G = 1 attention is a hard max). The
+   the logits printed (the init's G = 1 attention is a hard max), then
+   held on the rescaled weights as for Zamba2. The
    weights freed; the shares of the analytic bound; K4 on the run's
    encoder layer-0 q, k, v (16, 1500, 20, 1, 64) and decoder layer-0
    cross-attention q (16, 64, 20, 1, 64) over k, v (16, 1500, 20, 64):
    within one bf16 ulp of the plain version on N(0, 1) inputs, and on the
    run's own against float64 as for Moonlight (the line says whether one
    ulp of the plain version holds there too), timed beside the bound and
-   ``scaled_dot_product_attention(is_causal=False)``;
+   ``scaled_dot_product_attention(is_causal=False)``; and both on the
+   rescaled run's q, k, v within one bf16 ulp of the plain version;
 12. the vision-language serving path: Llama-3.2-Vision 90B at full width
    (d_model 8,192, 64 heads of 128 over 8 KV heads, d_ff 28,672) cut to
    20 layers (4 groups of 4 self-attention blocks and a gated
@@ -191,12 +198,15 @@ its own:
    embeddings, 64 decode steps: K3 41 per prefill and per decode step, K4
    20 per prefill (16 causal, 4 non-causal over the patches), all bf16;
    the hand-off (its 4 self-attention blocks and the cross-attention
-   block) and logits printed; the weights freed; the shares of the
+   block) and logits printed, then held on the rescaled weights; the
+   weights freed; the shares of the
    analytic bound; K3 on the run's layer-0 input (2, 8000, 8192) and its
    last position (split row at both); K4 on the cross-attention block's
    own q (2, 8000, 8, 8, 128) over k, v (2, 1601, 8, 128), as for
    Whisper's, beside ``scaled_dot_product_attention(is_causal=False,
-   enable_gqa=True)``;
+   enable_gqa=True)``, and on the rescaled run's within one bf16 ulp of
+   the plain version. The rescaled checks of the three paths print a
+   ``RESCALED {...}`` JSON line and the seconds they added;
 13. the training path (`launch/train.train`, the LLM distillation
    trainer): Gemma 2B at full size (18 layers, d_model 2,048, 8 q heads
    of 256 over 1 KV head, GeGLU d_ff 16,384, vocab 256,000, remat;
@@ -2002,7 +2012,8 @@ def k4_against_float64(q, k, v, causal=True) -> dict:
     often than its plain version does."""
     got = attn_ops.flash_attention(q, k, v, causal=causal, window=0, softcap=0.0)
     out = dict(n=got.numel(), kernel_beyond_plain=0, kernel_beyond_f64=0,
-               plain_beyond_f64=0, kernel_max_err_f64=0.0, plain_max_err_f64=0.0)
+               plain_beyond_f64=0, kernel_max_err_f64=0.0, plain_max_err_f64=0.0,
+               kernel_max_err_plain=0.0)
     for b in range(q.shape[0]):
         sl = slice(b, b + 1)
         want = attn_ref.flash_attention_ref(q[sl], k[sl], v[sl], causal=causal)
@@ -2017,6 +2028,8 @@ def k4_against_float64(q, k, v, causal=True) -> dict:
                                         float((g - truth).abs().max()))
         out["plain_max_err_f64"] = max(out["plain_max_err_f64"],
                                        float((w - truth).abs().max()))
+        out["kernel_max_err_plain"] = max(out["kernel_max_err_plain"],
+                                          float((g - w).abs().max()))
         del want, truth, g, w, ulp_t, ulp_w
         torch.cuda.empty_cache()
     return out
@@ -2146,7 +2159,8 @@ def moe_kernels_phase(dev, cfg, norm_in, qkv, bw, bf16_flops):
 # logits are printed for the same reason (G = 1 and 8: |q| in the hundreds
 # and tens), their blocks held: the self-attention blocks and the
 # cross-attention blocks, whose decode reads the memory's K/V from their
-# own prefill.
+# own prefill. On the same weights rescaled to fan-in d_model
+# (`rescale_attention`), the three paths' logits are held too.
 HANDOFF_BLOCK_BOUND = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 HANDOFF_LOGITS_BOUND = 5e-2
 
@@ -2349,6 +2363,81 @@ def free_weights(label, cfg, held: int) -> None:
     check(held - freed >= nbytes, f"{cfg.name}'s weights freed ({label})")
 
 
+# ROADMAP F12: the init draws `wq` (d, KV, G, hd) with fan-in G and `wk`,
+# `wv` (d, KV, hd) with fan-in KV, their second-to-last axes
+# (`models/common._leaf_init`, the JAX package's), so the attention of
+# Zamba2, Whisper and the VLM is nearly a hard max: their hand-off logits
+# are printed, not held, and K4 on their q, k, v is held against float64.
+# On the same weights with the three projections rescaled in place to
+# fan-in d_model, as a projection from d_model is meant to be drawn (the
+# factors of the CPU parity tests' `conditioned`), the logits are held
+# within HANDOFF_LOGITS_BOUND and K4 within one bf16 ulp of its plain
+# version on the rescaled run's own q, k, v.
+RESCALED = "wq/wk/wv rescaled to fan-in d_model"
+
+
+def rescale_attention(cfg, params) -> int:
+    """In place, every ``wq`` leaf times sqrt(G / d_model) and every ``wk``
+    and ``wv`` leaf times sqrt(KV / d_model) (G = heads / KV heads): each
+    attention block's, the shared block's, the encoder's and the
+    cross-attention blocks'. Returns the number of leaves scaled."""
+    G, KV = cfg.num_heads // cfg.num_kv_heads, cfg.num_kv_heads
+    scale = {"wq": (G / cfg.d_model) ** 0.5, "wk": (KV / cfg.d_model) ** 0.5,
+             "wv": (KV / cfg.d_model) ** 0.5}
+    leaves = []
+
+    def walk(tree):
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif key in scale:
+                leaf.mul_(scale[key])
+                leaves.append(key)
+
+    walk(params)
+    check({"wq", "wk", "wv"} <= set(leaves), f"{cfg.name}: q, k, v leaves rescaled {leaves}")
+    return len(leaves)
+
+
+def rescaled_checks(cfg, params, prompt, memory, label, layer_inputs, qkv_keys) -> dict:
+    """After a path's raw-init checks, on its weights still on the card:
+    `rescale_attention`, the hand-off again with its logits held
+    (`handoff_check`), and the rescaled run's own q, k, v (the entries
+    ``qkv_keys`` of ``layer_inputs``) for `k4_rescaled`."""
+    t0 = time.perf_counter()
+    n = rescale_attention(cfg, params)
+    handoff = handoff_check(cfg, params, prompt, f"{label} ({RESCALED}, {n} leaves)", True,
+                            memory)
+    inputs = layer_inputs(cfg, params, prompt, memory)
+    qkv = {key: inputs.pop(key) for key in qkv_keys}
+    del inputs
+    torch.cuda.empty_cache()
+    return dict(handoff=handoff, leaves=n, qkv=qkv, seconds=time.perf_counter() - t0)
+
+
+def k4_rescaled(label, qkv, causal: bool, what: str) -> dict:
+    """K4 on a rescaled run's own q, k, v (`rescaled_checks`): every output
+    within one bf16 ulp (+ 1e-5) of its plain version, one batch row at a
+    time; both against attention in float64 printed beside it."""
+    t0 = time.perf_counter()
+    q, k, v = qkv
+    f64 = k4_against_float64(q, k, v, causal)
+    print(f"{label} K4 on the {RESCALED} run's {what} {tuple(q.shape)} over {k.shape[1]} keys "
+          f"(causal {causal}; |q| up to {float(q.abs().max()):.2f}, |k| "
+          f"{float(k.abs().max()):.2f}): kernel more than 1 bf16 ulp (+1e-5) from plain: "
+          f"{f64['kernel_beyond_plain']} of {f64['n']:,} (largest difference "
+          f"{f64['kernel_max_err_plain']:.3e}); against attention in float64, more than 1 "
+          f"ulp off: kernel {f64['kernel_beyond_f64']}, plain {f64['plain_beyond_f64']}; "
+          f"largest error kernel {f64['kernel_max_err_f64']:.3e}, plain "
+          f"{f64['plain_max_err_f64']:.3e}")
+    check(f64["kernel_beyond_plain"] == 0,
+          f"{label} ({RESCALED}): K4 more than one bf16 ulp from its plain version on "
+          f"{f64['kernel_beyond_plain']} outputs")
+    torch.cuda.empty_cache()
+    return dict(f64, shape=list(q.shape), kv_len=k.shape[1], causal=causal,
+                seconds=time.perf_counter() - t0)
+
+
 def float32_handoff(dev, path_inputs, label) -> dict:
     """`handoff_check` on the path's weights before their rounding to bf16
     (the same draws from the same seed, and the same prompt), in float32:
@@ -2360,17 +2449,22 @@ def float32_handoff(dev, path_inputs, label) -> dict:
     return out
 
 
-def served_path(dev, path_inputs, n_decode, label, hold_logits, layer_inputs):
+def served_path(dev, path_inputs, n_decode, label, hold_logits, layer_inputs,
+                rescaled_keys=()):
     """One path end to end (`llm_path`), its hand-off check (with the
     path's memory, where it has one), and the run's own inputs for the
     kernel phases, ``layer_inputs(cfg, params, prompt, memory)``: a dict of
     tensors computed from the run's data (a norm's weight cloned, since it
-    outlives the params); the weights are dropped, and checked freed,
-    before it returns."""
+    outlives the params). With ``rescaled_keys`` (the q, k, v entries of
+    ``layer_inputs``), then `rescaled_checks` on the same weights. The
+    weights are dropped, and checked freed, before it returns."""
     cfg, params, prompt, memory, r, cold, launches, peak, mem = llm_path(
         dev, path_inputs, n_decode, label)
     handoff = handoff_check(cfg, params, prompt, label, hold_logits, memory)
     inputs = layer_inputs(cfg, params, prompt, memory)
+    if rescaled_keys:
+        inputs["rescaled"] = rescaled_checks(cfg, params, prompt, memory, label, layer_inputs,
+                                             rescaled_keys)
     held = torch.cuda.memory_allocated()
     del params, prompt, memory
     free_weights(f"after the {label} path", cfg, held)
@@ -2385,7 +2479,7 @@ def encdec_phase(dev, bw, bf16_flops) -> dict:
     over 1,500 frames)."""
     t0 = time.perf_counter()
     enc = served_path(dev, encdec_path_inputs, ENCDEC_DECODE, "EncDec", False,
-                      encdec_layer_inputs)
+                      encdec_layer_inputs, ("enc_qkv", "cross_qkv"))
     enc["shares"] = analytic_shares(enc["cfg"], enc["run"], ENCDEC_BATCH, ENCDEC_PROMPT,
                                     ENCDEC_DECODE, "EncDec")
     enc["k4_encoder"] = k4_run_phase(dev, "EncDec encoder", enc["cfg"], enc.pop("enc_qkv"),
@@ -2394,6 +2488,13 @@ def encdec_phase(dev, bw, bf16_flops) -> dict:
     enc["k4_cross"] = k4_run_phase(dev, "EncDec cross", enc["cfg"], enc.pop("cross_qkv"), bw,
                                    bf16_flops, 19, causal=False,
                                    what="decoder layer-0 cross-attention q, k, v")
+    qkv = enc["rescaled"].pop("qkv")
+    enc["rescaled"]["k4"] = {
+        "encoder": k4_rescaled("EncDec encoder", qkv["enc_qkv"], False,
+                               "encoder layer-0 q, k, v"),
+        "cross": k4_rescaled("EncDec cross", qkv["cross_qkv"], False,
+                             "decoder layer-0 cross-attention q, k, v")}
+    del qkv
     torch.cuda.empty_cache()
     enc["seconds"] = time.perf_counter() - t0
     return enc
@@ -2405,7 +2506,8 @@ def vlm_phase(dev, bw, bf16_flops) -> dict:
     wide on its layer-0 input and K4 on its cross-attention block's own q,
     k, v (8,000 queries over 1,601 patches)."""
     t0 = time.perf_counter()
-    vlm = served_path(dev, vlm_path_inputs, VLM_DECODE, "VLM", False, vlm_layer_inputs)
+    vlm = served_path(dev, vlm_path_inputs, VLM_DECODE, "VLM", False, vlm_layer_inputs,
+                      ("cross_qkv",))
     vlm["shares"] = analytic_shares(vlm["cfg"], vlm["run"], VLM_BATCH, VLM_PROMPT, VLM_DECODE,
                                     "VLM")
     vlm["k3"] = k3_run_phase(dev, "VLM", vlm.pop("norm_in"), ("split_row", "split_row"), bw,
@@ -2413,6 +2515,9 @@ def vlm_phase(dev, bw, bf16_flops) -> dict:
     vlm["k4_cross"] = k4_run_phase(dev, "VLM cross", vlm["cfg"], vlm.pop("cross_qkv"), bw,
                                    bf16_flops, 21, causal=False,
                                    what="cross-attention block's q, k, v (group 0, layer 4)")
+    vlm["rescaled"]["k4"] = {"cross": k4_rescaled(
+        "VLM cross", vlm["rescaled"].pop("qkv")["cross_qkv"], False,
+        "cross-attention block's q, k, v (group 0, layer 4)")}
     torch.cuda.empty_cache()
     vlm["seconds"] = time.perf_counter() - t0
     return vlm
@@ -3204,12 +3309,14 @@ def main() -> None:
     # then K3 on its Mamba2 inner norm input and K4 at head dim 112
     t_hyb = time.perf_counter()
     hyb = served_path(dev, hybrid_path_inputs, HYBRID_DECODE, "Hybrid", False,
-                      hybrid_layer_inputs)
+                      hybrid_layer_inputs, ("qkv",))
     hyb_shares = analytic_shares(hyb["cfg"], hyb["run"], HYBRID_BATCH, HYBRID_PROMPT,
                                  HYBRID_DECODE, "Hybrid")
     hk3 = k3_run_phase(dev, "Hybrid", hyb.pop("norm_in"), ("split_row", "split_row"), bw, 16,
                        what="Mamba2 inner norm input")
     hk4 = k4_run_phase(dev, "Hybrid", hyb["cfg"], hyb.pop("qkv"), bw, bf16_flops, 16)
+    hyb["rescaled"]["k4"] = {"shared": k4_rescaled(
+        "Hybrid", hyb["rescaled"].pop("qkv")["qkv"], True, "shared block's q, k, v")}
     torch.cuda.empty_cache()
     hyb["handoff_float32"] = float32_handoff(dev, hybrid_path_inputs, "Hybrid")
     hyb_s = time.perf_counter() - t_hyb
@@ -3246,6 +3353,12 @@ def main() -> None:
     # 14. the dry run at each path's shape against what the path measured
     dry = dryrun_phase([llm_mem, moe_mem, hyb["mem"], rec["mem"], enc["mem"], vlm["mem"],
                         tr["mem"]])
+
+    # the F12 checks on the rescaled weights of three paths
+    rescaled = {r["cfg"].name: r["rescaled"] for r in (hyb, enc, vlm)}
+    rescaled_k4 = {path: r["k4"] for path, r in rescaled.items()}
+    rescaled_s = sum(r["seconds"] + sum(k["seconds"] for k in r["k4"].values())
+                     for r in rescaled.values())
 
     # 15. kernels line
     kernels = [
@@ -3382,6 +3495,12 @@ def main() -> None:
                                 ("vlm_cross", vk4))},
              memory_library_call="scaled_dot_product_attention(is_causal=False, "
                                  "enable_gqa=G > 1) at the same shape",
+             rescaled_kernel_beyond_plain={f"{path} {part}": r["kernel_beyond_plain"]
+                                           for path, parts in rescaled_k4.items()
+                                           for part, r in parts.items()},
+             rescaled_max_abs_err=max(r["kernel_max_err_plain"]
+                                      for parts in rescaled_k4.values()
+                                      for r in parts.values()),
              sass=sass),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3468,6 +3587,13 @@ def main() -> None:
                                    enc["cfg"].name: enc["handoff"],
                                    f"{vlm['cfg'].name} ({vlm['cfg'].num_layers} layers)":
                                    vlm["handoff"]}))
+    logits = {path: r["handoff"]["logits"] for path, r in rescaled.items()}
+    beyond = {path: {part: r["kernel_beyond_plain"] for part, r in parts.items()}
+              for path, parts in rescaled_k4.items()}
+    print(f"{RESCALED} summary: hand-off logits {json.dumps(logits)} (held to "
+          f"{HANDOFF_LOGITS_BOUND}); K4 outputs more than 1 bf16 ulp from plain "
+          f"{json.dumps(beyond)}; the checks added {rescaled_s:.1f} s")
+    print("RESCALED " + json.dumps(rescaled))
     print("ANALYTIC_SHARES " + json.dumps({cfg.name: llm_shares, mcfg.name: moe_shares,
                                            hyb["cfg"].name: hyb_shares,
                                            rec["cfg"].name: rec_shares,

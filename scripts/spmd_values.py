@@ -16,10 +16,15 @@ absolute value of the plain result.
 
     PYTHONPATH=src python scripts/spmd_values.py [--archs gemma2_9b,rwkv6_3b]
 
-The MoE configs run with a capacity of every token (``capacity_factor`` =
-the number of experts): the sharded dispatch fills each rank's own share of
-an expert's capacity, so where an expert overflows it drops other tokens
-than the single-process dispatch does.
+The MoE configs run twice: with a capacity of every token
+(``capacity_factor`` = the number of experts) and, as the cases of
+``CAPPED`` (named ``arch:capped``), at the config's own capacity factor,
+where experts overflow. Each MoE layer's keep mask is recorded on both
+sides (the sharded one gathered whole) and printed as one more output,
+``keep``: the slots whose flag differs, and how many slots the single
+process dropped. Their tokens are drawn from ``FEW`` ids (a repetitive
+text), so that the routing is skewed and the train step and the prefill
+drop slots too (at random tokens only the 4-token decode step does).
 
 `tests/test_torch_spmd_values.py` runs it and holds the differences.
 """
@@ -34,20 +39,47 @@ import sys
 import tempfile
 
 ARCHS = ("gemma2_9b", "mixtral_8x22b", "whisper_large_v3", "rwkv6_3b", "zamba2_7b")
+CAPPED = ("mixtral_8x22b:capped", "moonshot_v1_16b_a3b:capped")
+FEW = 4  # the token ids of a capped case's batch
 B, S, CLIP = 4, 16, 0.5
 
 
-def smoke_cfg(arch: str):
+def smoke_cfg(case: str):
+    """The smoke config of a case: an architecture, or ``arch:capped``
+    (a MoE one at its own capacity factor)."""
     from repro_torch.configs import get_smoke
 
+    arch, _, capped = case.partition(":")
     # the Mamba2 scan holds its state in float32 and takes float32 or
     # bfloat16 weights only, so Zamba2 runs in float32
     dtype = "float32" if arch == "zamba2_7b" else "float64"
     cfg = get_smoke(arch, head_dim=64, remat=True, act_sharding=("data",),
                     param_dtype=dtype, compute_dtype=dtype)
-    if cfg.num_experts:
+    if cfg.num_experts and not capped:
         cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
     return cfg
+
+
+def _record_keeps():
+    """Have `models.moe._dispatch` record each call's keep mask (a
+    sharded one gathered whole). Returns a function that returns the
+    masks recorded since its last call."""
+    from repro_torch.models import moe
+
+    dispatch, seen = moe._dispatch, []
+
+    def recording(cfg, x_flat, idx):
+        out = dispatch(cfg, x_flat, idx)
+        seen.append(_full(out[2]))
+        return out
+
+    def taken() -> list:
+        got = list(seen)
+        seen.clear()
+        return got
+
+    moe._dispatch = recording
+    return taken
 
 
 def _full(t):
@@ -68,10 +100,12 @@ def _leaves_of(tree_):
     return tree.leaves(tree_)
 
 
-def _inputs(cfg, gen, batch: int, seq: int) -> dict:
+def _inputs(cfg, gen, batch: int, seq: int, vocab: int | None = None) -> dict:
+    """Tokens (of the first ``vocab`` ids, all by default), labels and
+    the cross-attention memory."""
     import torch
 
-    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+    toks = torch.randint(0, vocab or cfg.vocab_size, (batch, seq + 1), generator=gen,
                          dtype=torch.int64).to(torch.int32)
     out = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
     if cfg.num_xattn_tokens:
@@ -98,6 +132,7 @@ def run_rank(rank: int, world: int, mesh_shape: tuple, store: str, archs, seed: 
     from repro_torch.models.registry import build
 
     torch.set_num_threads(1)
+    _keeps = _record_keeps()
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world)
     rows = []
@@ -118,13 +153,25 @@ def run_rank(rank: int, world: int, mesh_shape: tuple, store: str, archs, seed: 
                 rows.append(dict(arch=arch, step=step, out=name, max_abs=diff,
                                  scale=scale, dtype=str(b.dtype).replace("torch.", "")))
 
+        def report_keep(arch, step, got, want):
+            """One row for the MoE layers' keep masks (rank 0 only): the
+            slots whose flag differs, of all, and those one process drops."""
+            if len(got) != len(want):
+                raise AssertionError(f"{arch} {step}: {len(got)} MoE dispatches "
+                                     f"sharded, {len(want)} in one process")
+            if want:
+                a, b = torch.cat(got), torch.cat(want)
+                rows.append(dict(arch=arch, step=step, out="keep",
+                                 max_abs=int((a != b).sum()), scale=b.numel(),
+                                 dropped=int((~b).sum()), dtype="bool"))
+
         for arch in archs:
             cfg = smoke_cfg(arch)
             model = build(cfg)
             gen = torch.Generator().manual_seed(seed)
             params = model.init(gen, device="cpu")
             mask = tree.tree_map(lambda p: torch.rand(p.shape, generator=gen) < 0.5, params)
-            batch = _inputs(cfg, gen, B, S)
+            batch = _inputs(cfg, gen, B, S, FEW if arch in CAPPED else None)
 
             # train: the loss, each gradient before the clip, the clip's
             # norm, and the params after the masked Adam update (its
@@ -142,6 +189,7 @@ def run_rank(rank: int, world: int, mesh_shape: tuple, store: str, archs, seed: 
                         now["grads"] = [_full(leaf.grad) for leaf in leaves]
                         now["gn"] = _full(state.grad_norm())
 
+                _keeps()
                 if sharded:
                     run = dryrun.sharded_step(
                         cfg, mesh, dmesh, dict(kind="train", seq_len=S, global_batch=B),
@@ -158,9 +206,11 @@ def run_rank(rank: int, world: int, mesh_shape: tuple, store: str, archs, seed: 
                     _, loss = make_train_step(model, clip=CLIP, clock=clock)(state, batch)
                     now["params"] = _copy(state.params)
                 now["loss"] = _full(loss)
+                now["keep"] = _keeps()
             if rank == 0:
                 for key in ("loss", "gn", "grads", "params"):
                     report(arch, "train", key, seen[True][key], seen[False][key])
+                report_keep(arch, "train", seen[True]["keep"], seen[False]["keep"])
 
             # prefill at S - 1 tokens into a cache of S positions, then one
             # decode step at position S - 1 from the plain prefill's caches
@@ -169,15 +219,15 @@ def run_rank(rank: int, world: int, mesh_shape: tuple, store: str, archs, seed: 
             shp = dict(kind="prefill", seq_len=S - 1, global_batch=B, cache_len=S)
             run = dryrun.sharded_step(cfg, mesh, dmesh, shp, values=dict(
                 params=params, batch=pre))
+            _keeps()
             with run.layout:
                 logits, caches = run.step()
-            got = dict(logits=_full(logits), caches=_full(caches))
-            want = None
+            got = dict(logits=_full(logits), caches=_full(caches), keep=_keeps())
             if rank == 0:
                 want_logits, want_caches = make_prefill_step(model, cache_len=S)(params, pre)
-                want = dict(logits=want_logits, caches=want_caches)
-                report(arch, "prefill", "logits", got["logits"], want["logits"])
-                report(arch, "prefill", "caches", got["caches"], want["caches"])
+                report(arch, "prefill", "logits", got["logits"], want_logits)
+                report(arch, "prefill", "caches", got["caches"], want_caches)
+                report_keep(arch, "prefill", got["keep"], _keeps())
 
             for kind, rows_b in (("decode", B), ("decode_long", 1)):
                 # every rank needs the plain prefill's caches to shard them
@@ -188,15 +238,18 @@ def run_rank(rank: int, world: int, mesh_shape: tuple, store: str, archs, seed: 
                 shp = dict(kind=kind, seq_len=S, global_batch=rows_b)
                 run = dryrun.sharded_step(cfg, mesh, dmesh, shp, values=dict(
                     params=params, batch=step_in, caches=_copy(start)))
+                _keeps()
                 with run.layout:
                     nxt, caches_out, logits = run.step()
-                got = dict(tok=_full(nxt), logits=_full(logits), caches=_full(caches_out))
+                got = dict(tok=_full(nxt), logits=_full(logits), caches=_full(caches_out),
+                           keep=_keeps())
                 if rank == 0:
                     w_tok, w_caches, w_logits = make_serve_step(model)(
                         params, _copy(start), step_in)
                     report(arch, kind, "tok", got["tok"], w_tok)
                     report(arch, kind, "logits", got["logits"], w_logits)
                     report(arch, kind, "caches", got["caches"], w_caches)
+                    report_keep(arch, kind, got["keep"], _keeps())
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -204,7 +257,8 @@ def run_rank(rank: int, world: int, mesh_shape: tuple, store: str, archs, seed: 
             print(json.dumps(r), flush=True)
 
 
-def run_world(archs=ARCHS, mesh_shape=(2, 2), seed: int = 0, timeout: float = 600) -> list:
+def run_world(archs=ARCHS + CAPPED, mesh_shape=(2, 2), seed: int = 0,
+              timeout: float = 600) -> list:
     """Start the ranks, wait for them, and return rank 0's rows."""
     world = mesh_shape[0] * mesh_shape[1]
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
@@ -235,7 +289,7 @@ def run_world(archs=ARCHS, mesh_shape=(2, 2), seed: int = 0, timeout: float = 60
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--archs", default=",".join(ARCHS))
+    ap.add_argument("--archs", default=",".join(ARCHS + CAPPED))
     ap.add_argument("--mesh", default="2,2")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=None, help="run one rank (internal)")

@@ -22,11 +22,16 @@ dispatch takes the bound, all T*k slots kept, as the JAX package's
 capacity-based dispatch is static in shape. Only the gathered rows'
 count depends on it (T*k rows at most).
 
-On DTensors (the dry run's sharded trace) the dispatch into the buffer
-and the combine out of it run on each rank's tokens (`spmd.local`): a
-rank fills its own capacity rows of every expert (the buffer's rows
-sharded as the tokens are), and gathers the experts' outputs for its
-tokens, which the expert products leave sharded over the experts.
+On DTensors (the dry run's sharded trace and `scripts/spmd_values.py`)
+the dispatch keeps and drops exactly the slots that one program over all
+T tokens does, as the JAX package's step partitioned by GSPMD does
+(`_dispatch_sharded`): each rank counts its slots per expert, the counts
+are all-gathered (R*E ints), and a slot's position is its rank's
+cumulative count after the lower ranks' counts, kept below `capacity`
+of the global T. The (E, cap, d) buffer's capacity rows are sharded as
+the tokens are; each rank all-gathers the tokens and the slots' ids,
+positions and flags and writes its own rows, and the combine
+reduce-scatters each rank's weighted rows over the tokens.
 
 `moe_ref` is the dense oracle (every expert on every token, no drops).
 """
@@ -80,20 +85,35 @@ def capacity(cfg: ModelConfig, T: int) -> int:
     return min(cap, T)
 
 
-def dispatch(cfg: ModelConfig, idx):
+def expert_counts(cfg: ModelConfig, idx):
+    """Slots per expert of expert ids idx (T, k): (E,) int32."""
+    experts = torch.arange(cfg.num_experts, device=idx.device)
+    return (experts[:, None] == idx.reshape(-1)[None, :]).sum(dim=1, dtype=torch.int32)
+
+
+def dispatch(cfg: ModelConfig, idx, offset=None, cap: int | None = None):
     """Each slot's position within its expert and whether it is kept.
     idx: (T, k) expert ids. Returns (pos_f, keep), both (T*k,), from the
     cumulative count per expert in token-major, k-minor order. The count
     runs along the slots as the innermost axis of an (E, T*k) one-hot: a
     scan over the outer axis of (T*k, E) took 25 ms a layer on an H100 at
-    T*k = 96,000."""
+    T*k = 96,000.
+
+    On a shard of a program's tokens, ``offset`` (E,) counts each
+    expert's slots on the tokens before the shard (`expert_counts` of the
+    lower ranks' shards) and ``cap`` is the capacity of all the tokens:
+    the positions and keep flags are then the shard's part of one
+    dispatch over all of them. By default the shard is the whole: no
+    offset, ``capacity(cfg, T)``."""
     T, k = idx.shape
     idx_f = idx.reshape(T * k)
     experts = torch.arange(cfg.num_experts, device=idx.device)
     one_hot = (experts[:, None] == idx_f[None, :]).to(torch.int32)  # (E, T*k)
     counts = torch.cumsum(one_hot, dim=1, dtype=torch.int32)
     pos_f = counts.gather(0, idx_f[None, :])[0] - 1
-    return pos_f, pos_f < capacity(cfg, T)
+    if offset is not None:
+        pos_f = pos_f + offset[idx_f]
+    return pos_f, pos_f < (capacity(cfg, T) if cap is None else cap)
 
 
 def _dispatch_tokens(cfg: ModelConfig, x_flat, idx):
@@ -127,22 +147,107 @@ def _combine(h_out, idx, weights, pos_f, keep):
     return gathered.reshape(T, k, d).sum(dim=1)
 
 
+def _own_slots(first: int, rows: int, E: int, pos_f, keep):
+    """The kept slots (T*k,) whose position lies in [first, first + rows):
+    their indices. On the meta device (the dry run) which they are is not
+    known: the bound, the first min(T*k, E*rows) slots."""
+    if keep.device.type == "meta":
+        return torch.arange(min(keep.shape[0], E * rows), device=keep.device)
+    return (keep & (pos_f >= first) & (pos_f < first + rows)).nonzero()[:, 0]
+
+
+def _write_rows(cfg, first: int, rows: int, x_all, idx_all, pos_f, keep):
+    """A rank's rows [first, first + rows) of every expert of the (E, cap,
+    d) buffer of all T tokens x_all (T, d): (E, rows, d)."""
+    E, k = cfg.num_experts, idx_all.shape[1]
+    own = _own_slots(first, rows, E, pos_f, keep)
+    buffer = torch.zeros((E * rows, x_all.shape[1]), dtype=x_all.dtype, device=x_all.device)
+    buffer.index_copy_(0, idx_all.reshape(-1)[own] * rows + pos_f[own] - first,
+                       x_all.index_select(0, own // k))
+    return buffer.view(E, rows, -1)
+
+
+def _combine_rows(first: int, rows: int, h_out, idx_all, w_all, pos_f, keep):
+    """The expert outputs of a rank's rows h_out (E, rows, d), weighted and
+    added to their tokens: (T, d), the rank's part of `_combine`'s sum."""
+    E, _, d = h_out.shape
+    T, k = idx_all.shape
+    own = _own_slots(first, rows, E, pos_f, keep)
+    got = h_out.reshape(E * rows, d).index_select(
+        0, idx_all.reshape(-1)[own] * rows + pos_f[own] - first)
+    got = got * w_all.reshape(-1)[own][:, None]
+    return torch.zeros((T, d), dtype=got.dtype, device=got.device).index_add_(0, own // k, got)
+
+
+def _dispatch_sharded(cfg: ModelConfig, x_flat, idx):
+    """`_dispatch_tokens` and `_combine` of DTensor tokens x_flat (T, d) and
+    their expert ids idx (T, k), both placed as x_flat is along the
+    tokens: the slots that one program over all T tokens keeps, in the
+    buffer that the JAX package lays out, its capacity rows sharded as the
+    tokens are (R shards of ceil(cap / R) rows, the last padded).
+
+    Positions: each rank counts its slots per expert, the (R, E) counts
+    are all-gathered, and a slot's position is its rank's cumulative count
+    after the lower ranks' counts (`dispatch` with an offset), kept below
+    the capacity of all T tokens. The dispatch all-gathers the tokens and
+    the slots' expert ids, positions and keep flags; each rank writes the
+    kept slots of its own rows. The combine adds each rank's rows'
+    weighted outputs to their tokens, and reduce-scatters the sums over
+    the tokens. Returns (buffer, pos_f, keep, combine), the last as
+    `_combine`'s signature."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = x_flat.device_mesh
+    tok = (0,)
+    cap = capacity(cfg, x_flat.shape[0])
+    px, pi = spmd.operand(x_flat, tok)[0], spmd.operand(x_flat, tok, {0: 0})[0]
+    pb, gb = spmd.operand(x_flat, tok, {0: 1})
+    whole, partial = spmd.operand(x_flat, tok, {})  # replicated; a partial sum
+    rep = [Replicate()] * mesh.ndim
+    # this rank's shard of the tokens (DTensor's order: mesh dims in turn)
+    shards, rank, coord = 1, 0, mesh.get_coordinate()
+    for i, p in enumerate(pi):
+        if p.is_shard():
+            shards, rank = shards * mesh.size(i), rank * mesh.size(i) + coord[i]
+    rows = -(-cap // shards)
+    first = rank * rows
+
+    # (R, E): each rank's row its slots per expert, then the lower rows' sum
+    counts = spmd.local(lambda i: expert_counts(cfg, i)[None], pi, (pi,))(idx)
+    before = spmd.local(lambda c: torch.cumsum(c, dim=0, dtype=torch.int32) - c, rep,
+                        (rep,))(counts.redistribute(placements=rep))
+    pos_f, keep = spmd.local(lambda i, o: dispatch(cfg, i, o[0], cap), (pi, pi),
+                             (pi, pi))(idx, before)
+    slots = (whole,) * 3  # every rank reads every slot's expert, position, flag
+    write = spmd.local(functools.partial(_write_rows, cfg, first, rows), pb,
+                       (whole,) + slots, (partial,) + slots)
+    buffer = write(x_flat, idx, pos_f, keep)
+    add = spmd.local(functools.partial(_combine_rows, first, rows), partial,
+                     (pb, whole, whole) + slots[1:], (gb, whole, partial, whole, whole))
+
+    def combine(h_out, idx, weights, pos_f, keep):
+        return add(h_out, idx, weights, pos_f, keep).redistribute(placements=px)
+
+    return buffer, pos_f, keep, combine
+
+
+def _dispatch(cfg: ModelConfig, x_flat, idx):
+    """(buffer (E, cap, d), pos_f, keep, combine): `_dispatch_tokens`, and
+    `_combine` as the layer calls it (on DTensors, `_dispatch_sharded`)."""
+    if spmd.is_dtensor(x_flat):
+        return _dispatch_sharded(cfg, x_flat, idx)
+    return (*_dispatch_tokens(cfg, x_flat, idx), _combine)
+
+
 def moe_apply(cfg: ModelConfig, p: dict, x):
     """x: (B, S, d) -> (out (B, S, d), aux_loss float32 scalar)."""
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
     weights, idx, aux = _route(cfg, p, x_flat)
-    dispatch_fn, combine_fn = (lambda a, b: _dispatch_tokens(cfg, a, b)), _combine
-    if spmd.is_dtensor(x_flat):
-        tok = (0,)
-        (px, gx), (pi, gi) = spmd.operand(x_flat, tok), spmd.operand(x_flat, tok, {0: 0})
-        pb, gb = spmd.operand(x_flat, tok, {0: 1})
-        dispatch_fn = spmd.local(dispatch_fn, (pb, pi, pi), (px, pi), (gx, gi))
-        combine_fn = spmd.local(combine_fn, px, (pb,) + (pi,) * 4, (gb,) + (gi,) * 4)
-    buffer, pos_f, keep = dispatch_fn(x_flat, idx)
+    buffer, pos_f, keep, combine = _dispatch(cfg, x_flat, idx)
 
     h = glu_act(cfg, torch.bmm(buffer, p["wg"])) * torch.bmm(buffer, p["wu"])
-    out = combine_fn(torch.bmm(h, p["wd"]), idx, weights, pos_f, keep)
+    out = combine(torch.bmm(h, p["wd"]), idx, weights, pos_f, keep)
     if cfg.num_shared_experts:
         out = out + mlp_apply(cfg, p["shared"], x_flat)
     return out.reshape(B, S, d), aux

@@ -43,9 +43,11 @@ KINDS = {k: dict(kind=k, seq_len=S, global_batch=B) for k in vs_xla.KINDS}
 # Two partitioners choose their collectives differently: XLA's GSPMD and
 # PyTorch's DTensor place each activation and weight by their own costs.
 # The port's sum is held within this factor of XLA's; the ratios measured
-# at these shapes lie between 0.81 and 1.41 for the train steps; RWKV6's
-# decode step is at 0.48, and the other four decode steps lie outside,
-# which F18 explains (`OUTSIDE`: 0.17, 0.09, 0.12, 0.11).
+# at these shapes lie between 0.81 and 1.51 for the train steps (Mixtral's
+# 1.51: its MoE dispatch gathers the tokens across "data" to keep one
+# program's slots, ROADMAP F20); RWKV6's decode step is at 0.48, and the
+# other four decode steps lie outside, which F18 explains (`OUTSIDE`:
+# 0.17, 0.09, 0.12, 0.11).
 FACTOR = 3.0
 # ROADMAP F18: decode steps. XLA all-gathers the FSDP shards of the weights
 # inside its layer loop; the port leaves the weights where they lie and

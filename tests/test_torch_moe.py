@@ -52,6 +52,18 @@ def _close(got, want):
                                atol=ATOL + SCALE_ATOL * float(np.abs(want).max()))
 
 
+def _jax_positions(cfg, idx):
+    """Slot positions and keep flags of expert ids idx (T, k), by
+    `moe_apply`'s cumulative count in the JAX package."""
+    T, k = idx.shape
+    E = cfg.num_experts
+    cap = min(max(int(cfg.capacity_factor * T * k / E), 1), T)
+    idx_f = jnp.asarray(idx).reshape(T * k)
+    one_hot = (idx_f[:, None] == jnp.arange(E)[None, :]).astype(jnp.int32)
+    pos_f = (jnp.cumsum(one_hot, axis=0) * one_hot).sum(axis=-1) - 1
+    return np.asarray(pos_f), np.asarray(pos_f < cap)
+
+
 def _jax_dispatch(cfg, params, x):
     """The JAX package's routing and slot positions, by its own code
     (`_route`, then `moe_apply`'s cumulative count)."""
@@ -59,12 +71,8 @@ def _jax_dispatch(cfg, params, x):
     x_flat = x.reshape(T, cfg.d_model)
     _, idx, _ = moe_jax._route(cfg, params, x_flat)
     probs = jax.nn.softmax((x_flat @ params["router"]).astype(jnp.float32), axis=-1)
-    k, E = cfg.experts_per_token, cfg.num_experts
-    cap = min(max(int(cfg.capacity_factor * T * k / E), 1), T)
-    idx_f = idx.reshape(T * k)
-    one_hot = (idx_f[:, None] == jnp.arange(E)[None, :]).astype(jnp.int32)
-    pos_f = (jnp.cumsum(one_hot, axis=0) * one_hot).sum(axis=-1) - 1
-    return np.asarray(idx), np.asarray(pos_f), np.asarray(pos_f < cap), np.asarray(probs)
+    pos_f, keep = _jax_positions(cfg, idx)
+    return np.asarray(idx), pos_f, keep, np.asarray(probs)
 
 
 def _assert_no_near_ties(probs, k):
@@ -117,6 +125,57 @@ def test_decode_shape_drops_a_shared_expert():
     want, _ = moe_jax.moe_apply(cfg_j, params_j, x_j)
     got, _ = moe.moe_apply(cfg_t, params_t, x_t)
     _close(got, want)
+
+
+@pytest.mark.parametrize("sizes", [(5, 7, 3), (0, 9, 4, 2), (11, 1, 6)])
+def test_shard_positions_are_one_dispatch_over_all_tokens(sizes):
+    """The sharded dispatch's functions on one process. Each shard of the
+    tokens (per-shard T that do not divide evenly, one empty) takes
+    `dispatch` with the lower shards' `expert_counts` as its offset and
+    the capacity of all the tokens: concatenated, its positions and keep
+    flags are `dispatch`'s over all the tokens, and the JAX package's.
+    Each shard's capacity rows of the buffer (`_write_rows`), side by
+    side, are the whole buffer bit for bit (and zeros past it); the
+    shards' parts of the combine (`_combine_rows`) sum to `_combine`'s
+    output. Expert ids are skewed towards two experts, so slots drop."""
+    cfg = get_smoke("mixtral-8x22b")  # capacity_factor 1.25
+    E, k, T, R = cfg.num_experts, cfg.experts_per_token, sum(sizes), len(sizes)
+    rng = np.random.default_rng(len(sizes))
+    skew = np.array([0.4, 0.3] + [0.3 / (E - 2)] * (E - 2))
+    idx = torch.from_numpy(np.stack([rng.choice(E, k, replace=False, p=skew)
+                                     for _ in range(T)]))
+    x = torch.from_numpy(rng.normal(size=(T, 8)))
+    w = torch.from_numpy(rng.uniform(size=(T, k)))
+    want_pos, want_keep = moe.dispatch(cfg, idx)
+    assert 0 < (~want_keep).sum() < want_keep.numel()
+    jax_pos, jax_keep = _jax_positions(cfg, idx.numpy())
+    assert np.array_equal(want_pos.numpy(), jax_pos)
+    assert np.array_equal(want_keep.numpy(), jax_keep)
+
+    cap = moe.capacity(cfg, T)
+    offset = torch.zeros(E, dtype=torch.int32)
+    pos, keep = [], []
+    for part in torch.split(idx, sizes):
+        p_s, k_s = moe.dispatch(cfg, part, offset, cap)
+        pos.append(p_s)
+        keep.append(k_s)
+        offset = offset + moe.expert_counts(cfg, part)
+    assert torch.equal(torch.cat(pos), want_pos)
+    assert torch.equal(torch.cat(keep), want_keep)
+    assert torch.equal(offset, torch.bincount(idx.reshape(-1), minlength=E).to(torch.int32))
+
+    buf, _, _ = moe._dispatch_tokens(cfg, x, idx)
+    rows = -(-cap // R)
+    parts = [moe._write_rows(cfg, r * rows, rows, x, idx, want_pos, want_keep)
+             for r in range(R)]
+    got = torch.cat(parts, dim=1)
+    assert torch.equal(got[:, :cap], buf) and not got[:, cap:].any()
+    h = torch.from_numpy(rng.normal(size=buf.shape))
+    h_pad = torch.cat([h, torch.zeros((E, R * rows - cap, 8), dtype=h.dtype)], dim=1)
+    out = sum(moe._combine_rows(r * rows, rows, h_pad[:, r * rows:(r + 1) * rows], idx, w,
+                                want_pos, want_keep) for r in range(R))
+    torch.testing.assert_close(out, moe._combine(h, idx, w, want_pos, want_keep),
+                               rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mixtral-8x22b"])
