@@ -29,11 +29,12 @@ the device time grouped into the port's own kernels, matrix products
 (cuBLAS), copies and casts, indexing (the MoE dispatch's gathers and
 scatters), and the rest, and the kernels with the most device time. For
 the recurrent paths it also runs the prefill and the decode steps once
-more untraced, with CUDA events around every call of the scans (the
-Mamba2 SSD chunk loop and its one-token step, the RWKV6 wkv chunk loop
-and its step), and prints the scans' share of each phase on the device's
-clock (their launches' waits for the host included). It needs a card and
-exits non-zero without one.
+more untraced, with the port's spans on (`core.timing.spans`), and
+prints the scans' share of each phase on the device's clock: the device
+milliseconds of the spans around the Mamba2 SSD chunk loop and its
+one-token step and the RWKV6 wkv chunk loop and its step (their
+launches' waits for the host included). It needs a card and exits
+non-zero without one.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+from repro_torch.core import timing  # noqa: E402
 from repro_torch.launch.serve import (ENCDEC_DECODE, HYBRID_DECODE,  # noqa: E402
                                       MAIN_DECODE, MOE_DECODE, RECURRENT_DECODE,
                                       VLM_DECODE, encdec_path_inputs,
@@ -56,10 +58,10 @@ from repro_torch.launch.serve import (ENCDEC_DECODE, HYBRID_DECODE,  # noqa: E40
                                       vlm_path_inputs)
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models.registry import build  # noqa: E402
-from repro_torch.models.ssm import mamba2, rwkv6  # noqa: E402
 from repro_torch.models.transformer import RECURRENT_KINDS  # noqa: E402
 
 TOP = 15  # kernels listed per phase
+SCANS = ("mamba2.ssd_chunked", "mamba2.ssd_step", "rwkv6.wkv_chunked", "rwkv6.wkv_step")
 
 
 def kernel_times(prof):
@@ -109,42 +111,9 @@ def report(label: str, prof, wall_ms: float, steps: int = 1):
         print(f"    {t / 1e3 / steps:10.3f} ms  {c / steps:8.1f}x  {name[:110]}")
 
 
-class ScanClock:
-    """CUDA events around every call of the recurrent blocks' scans while
-    inside the ``with``; `ms` sums them (device clock)."""
-
-    SCANS = ((mamba2, "_ssd_chunked"), (mamba2, "_ssd_step"),
-             (rwkv6, "_wkv_chunked"), (rwkv6, "_wkv_step"))
-
-    def __init__(self):
-        self.pairs = []
-
-    def _wrap(self, fn):
-        def timed(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            self.pairs.append((start, end))
-            return out
-        return timed
-
-    def __enter__(self):
-        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.SCANS]
-        for mod, name, fn in self.saved:
-            setattr(mod, name, self._wrap(fn))
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
-            setattr(mod, name, fn)
-
-    def ms(self) -> float:
-        torch.cuda.synchronize()
-        total = sum(a.elapsed_time(b) for a, b in self.pairs)
-        self.pairs.clear()
-        return total
+def scan_ms(records) -> float:
+    """Device milliseconds of the recurrent blocks' scan spans."""
+    return sum(r.device_ms for r in records if r.name in SCANS)
 
 
 def profile_path(path_inputs, n_decode: int):
@@ -181,14 +150,15 @@ def profile_path(path_inputs, n_decode: int):
         print(f"{run}: prefill {pre_ms:.1f} ms, decode {dec_ms / n_decode:.2f} "
               f"ms per step (host clock around synchronised calls)")
     if any(kind in RECURRENT_KINDS for kind in cfg.pattern):
-        with ScanClock() as clock:
+        with timing.spans() as records:
             (logits, caches), pre_ms = timed(prefill)
-            pre_scan = clock.ms()
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        pre_scan = scan_ms(records)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        with timing.spans() as records:
             _, dec_ms = timed(decode, caches, tok)
-            dec_scan = clock.ms()
+        dec_scan = scan_ms(records)
         del logits, caches
-        print(f"scans (CUDA events around each call): prefill {pre_scan:.1f} of "
+        print(f"scans (the port's spans, CUDA events): prefill {pre_scan:.1f} of "
               f"{pre_ms:.1f} ms ({pre_scan / pre_ms:.1%}), decode {dec_scan / n_decode:.2f} of "
               f"{dec_ms / n_decode:.2f} ms per step ({dec_scan / dec_ms:.1%})")
     acts = [ProfilerActivity.CUDA]

@@ -16,8 +16,26 @@ numbers bracket with `snapshot()` / `delta(snap)`. Single-threaded by
 construction, like the engine. `set_enabled(False)` turns every `record`
 into a no-op (the perf_counter reads at the call sites are guarded by
 `enabled()`, so the disabled overhead is one module-attr check per stage).
+
+It is also the port's span recorder. `span(name, **attrs)` marks a layer
+boundary of the served path (`launch.serve`, the encoder, the decode
+attention, the recurrent scans); `spans()` records them for a ``with``
+block and hands the records over when it ends. Spans are off unless a
+`spans()` block is open, under their own switch: the stage stats' switch
+does not touch them. Off, `span` returns one shared object whose
+``with`` does nothing: no clock read, no event, no record; the call
+still builds its keyword arguments, so a call site passes only what it
+has at hand (``serve.call``'s counts, once a call). On, a span
+records its name, its host start and end in `time.time_ns()` (the
+clock `torch.profiler` stamps the device's operations with), its parent
+and its call, and, where the process has initialised CUDA, a CUDA event
+pair at its edges, read after one synchronise when the block ends.
 """
 from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass
 
 import torch
 
@@ -113,3 +131,117 @@ def block(tree) -> None:
                if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
     for dev in devices:
         torch.cuda.synchronize(dev)
+
+
+@dataclass(slots=True)
+class Span:
+    """One recorded span. ``start_ns``, ``end_ns``: the host's
+    `time.time_ns()` on entering and leaving it. ``parent``: the index in
+    the records of the span open when it began (None for an outermost
+    span). ``call``: the index of the outermost span it lies in, its own
+    for an outermost one, so that the spans of one `serve` call share it.
+    ``device_ms``: the time between the CUDA events recorded at its edges
+    on the current stream (None where no events were recorded)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int | None
+    call: int
+    attrs: dict
+    device_ms: float | None = None
+
+
+class _NoSpan:
+    """What `span` returns while spans are off: one shared object."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Recording:
+    """The records of one `spans()` block, the open spans' indices, and
+    each record's CUDA event pair (where ``cuda``)."""
+
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self.records: list[Span] = []
+        self.events: list[tuple] = []
+        self.stack: list[int] = []
+
+    def open(self, name: str, attrs: dict) -> int:
+        i = len(self.records)
+        parent = self.stack[-1] if self.stack else None
+        call = i if parent is None else self.records[parent].call
+        self.records.append(Span(name, time.time_ns(), 0, parent, call, attrs))
+        if self.cuda:
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            self.events.append(pair)
+        self.stack.append(i)
+        return i
+
+    def close(self, i: int) -> None:
+        if self.cuda:
+            self.events[i][1].record()
+        self.records[i].end_ns = time.time_ns()
+        self.stack.pop()
+
+    def finish(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+            for rec, (start, end) in zip(self.records, self.events):
+                rec.device_ms = start.elapsed_time(end)
+            self.events.clear()
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "attrs", "index")
+
+    def __init__(self, rec: _Recording, name: str, attrs: dict):
+        self.rec, self.name, self.attrs = rec, name, attrs
+
+    def __enter__(self):
+        self.index = self.rec.open(self.name, self.attrs)
+        return None
+
+    def __exit__(self, *exc):
+        self.rec.close(self.index)
+        return False
+
+
+_RECORDING: _Recording | None = None
+
+
+def span(name: str, **attrs):
+    """A context manager marking one layer boundary: recorded as a `Span`
+    inside a `spans()` block, the shared no-op object outside one."""
+    rec = _RECORDING
+    if rec is None:
+        return _NO_SPAN
+    return _OpenSpan(rec, name, attrs)
+
+
+@contextlib.contextmanager
+def spans():
+    """Turn spans on for the ``with`` block and yield the list their
+    records go into, in the order they began. When the block ends, spans
+    are off again and, where CUDA events were recorded, each record's
+    ``device_ms`` is filled after one synchronise. One block at a time."""
+    global _RECORDING
+    if _RECORDING is not None:
+        raise RuntimeError("spans are already being recorded")
+    rec = _RECORDING = _Recording(torch.cuda.is_initialized())
+    try:
+        yield rec.records
+    finally:
+        _RECORDING = None
+        rec.finish()

@@ -27,6 +27,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.core import timing
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.rmsnorm import ops as norm_ops
@@ -208,39 +209,49 @@ def serve(cfg: ModelConfig, params: dict, prompt: torch.Tensor, n_tokens: int,
     the run was finite); ``prefill_ms`` and ``decode_ms_per_token``
     (device time on the card, host time on the CPU); ``launches``, the
     RMSNorm and flash-attention kernel launches of the prefill and of all
-    decode steps (0 on the CPU, where the plain versions run)."""
-    dev = resolve_device(device)
-    model = build(cfg)
-    B, S = prompt.shape
-    prompt = prompt.to(dev)
-    batch = {"tokens": prompt}
-    if memory is not None:
-        batch["memory"] = memory.to(dev)
-    prefill_step = make_prefill_step(model, S + n_tokens)
-    serve_step = make_serve_step(model)
+    decode steps (0 on the CPU, where the plain versions run).
 
-    clock = _Clock(dev)
-    c0 = _counts()
-    clock.mark()
-    logits, caches = prefill_step(params, batch)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, 1)
-    clock.mark()
-    c1 = _counts()
-    finite = torch.isfinite(logits).all()
-    out = [tok]
-    for i in range(n_tokens):
-        tok, caches, logits = serve_step(params, caches, {"tokens": tok, "pos": S + i})
-        finite &= torch.isfinite(logits).all()  # stays on the device
-        out.append(tok)
-    clock.mark()
-    c2 = _counts()
-    return {
-        "tokens": torch.cat(out, dim=1).cpu(),
-        "finite": bool(finite),
-        "prefill_ms": clock.ms(0, 1),
-        "decode_ms_per_token": clock.ms(1, 2) / max(n_tokens, 1),
-        "launches": {"prefill": _diff(c1, c0), "decode": _diff(c2, c1)},
-    }
+    Its spans (`core.timing.span`): ``serve.call`` around the whole
+    call, its attributes the batch and the token and frame counts;
+    ``serve.prefill`` over the interval that ``prefill_ms`` times;
+    ``serve.decode_step`` around each decode step, whose host stamps are
+    the tokens' timestamps."""
+    B, S = prompt.shape
+    with timing.span("serve.call", batch=B, prompt_tokens=S, new_tokens=n_tokens,
+                     memory_positions=0 if memory is None else memory.shape[1]):
+        dev = resolve_device(device)
+        model = build(cfg)
+        prompt = prompt.to(dev)
+        batch = {"tokens": prompt}
+        if memory is not None:
+            batch["memory"] = memory.to(dev)
+        prefill_step = make_prefill_step(model, S + n_tokens)
+        serve_step = make_serve_step(model)
+
+        clock = _Clock(dev)
+        c0 = _counts()
+        clock.mark()
+        with timing.span("serve.prefill"):
+            logits, caches = prefill_step(params, batch)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, 1)
+        clock.mark()
+        c1 = _counts()
+        finite = torch.isfinite(logits).all()
+        out = [tok]
+        for i in range(n_tokens):
+            with timing.span("serve.decode_step"):
+                tok, caches, logits = serve_step(params, caches, {"tokens": tok, "pos": S + i})
+                finite &= torch.isfinite(logits).all()  # stays on the device
+            out.append(tok)
+        clock.mark()
+        c2 = _counts()
+        return {
+            "tokens": torch.cat(out, dim=1).cpu(),
+            "finite": bool(finite),
+            "prefill_ms": clock.ms(0, 1),
+            "decode_ms_per_token": clock.ms(1, 2) / max(n_tokens, 1),
+            "launches": {"prefill": _diff(c1, c0), "decode": _diff(c2, c1)},
+        }
 
 
 def main(argv=None):

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import spmd
+from repro_torch.core import timing
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import ModelConfig, ParamMeta
 from repro_torch.models.layers import apply_rope
@@ -124,27 +125,29 @@ def decode_self_attention(cfg: ModelConfig, p: dict, x, cache, pos: int, *,
 
     Ring cache: when cfg.decode_window_slicing is on and the block is
     windowed, R == min(seq, window) and slot j holds absolute position
-    pos - ((pos - j) mod R). Returns (out, cache)."""
-    positions = spmd.like(torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                                     device=x.device), x)
-    q, k_new, v_new = _proj_qkv(cfg, p, x, positions=positions)
-    R = cache["k"].shape[1]
-    eff_window = window or cfg.attn_window_override
-    ring = bool(cfg.decode_window_slicing and eff_window)
-    slot = pos % R if ring else pos
-    _write_position(cache["k"], slot, k_new[:, 0].to(cache["k"].dtype))
-    _write_position(cache["v"], slot, v_new[:, 0].to(cache["v"].dtype))
-    j = spmd.like(torch.arange(R, device=x.device), x)
-    kp = pos - torch.remainder(pos - j, R) if ring else j
-    if spmd.is_dtensor(cache["k"]):
-        o = _decode_attention_sharded(
-            q, cache, kp, lambda q, k, kp: _decode_scores(cfg, q, k, kp, pos, eff_window))
-        return _project_out(o.to(x.dtype), p["wo"]), cache
-    pr = torch.softmax(_decode_scores(cfg, q, cache["k"], kp, pos, eff_window), dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", pr,
-                     cache["v"].to(torch.float32)).to(x.dtype)
-    out = _project_out(o, p["wo"])
-    return out, cache
+    pos - ((pos - j) mod R). Returns (out, cache). One
+    ``attention.decode_self`` span (`core.timing.span`)."""
+    with timing.span("attention.decode_self"):
+        positions = spmd.like(torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                                         device=x.device), x)
+        q, k_new, v_new = _proj_qkv(cfg, p, x, positions=positions)
+        R = cache["k"].shape[1]
+        eff_window = window or cfg.attn_window_override
+        ring = bool(cfg.decode_window_slicing and eff_window)
+        slot = pos % R if ring else pos
+        _write_position(cache["k"], slot, k_new[:, 0].to(cache["k"].dtype))
+        _write_position(cache["v"], slot, v_new[:, 0].to(cache["v"].dtype))
+        j = spmd.like(torch.arange(R, device=x.device), x)
+        kp = pos - torch.remainder(pos - j, R) if ring else j
+        if spmd.is_dtensor(cache["k"]):
+            o = _decode_attention_sharded(
+                q, cache, kp, lambda q, k, kp: _decode_scores(cfg, q, k, kp, pos, eff_window))
+            return _project_out(o.to(x.dtype), p["wo"]), cache
+        pr = torch.softmax(_decode_scores(cfg, q, cache["k"], kp, pos, eff_window), dim=-1)
+        o = torch.einsum("bkgqs,bskh->bqkgh", pr,
+                         cache["v"].to(torch.float32)).to(x.dtype)
+        out = _project_out(o, p["wo"])
+        return out, cache
 
 
 def _decode_scores(cfg: ModelConfig, q, k, kp=None, pos: int = 0, eff_window: int = 0):
@@ -220,17 +223,19 @@ def _write_position(c, slot: int, new):
 
 def decode_cross_attention(cfg: ModelConfig, p: dict, x, mem_cache):
     """Decode-time cross attention against the memory's K/V from the
-    prefill; mem_cache: dict(k, v) each (B, Sm, KV, hd), only read."""
-    q = _project("bsd,dkgh->bskgh", x, p["wq"])
-    if spmd.is_dtensor(mem_cache["k"]):
-        kp = spmd.like(torch.arange(mem_cache["k"].shape[1], device=x.device), x)
-        o = _decode_attention_sharded(q, mem_cache, kp,
-                                      lambda q, k, kp: _decode_scores(cfg, q, k))
-        return _project_out(o.to(x.dtype), p["wo"])
-    pr = torch.softmax(_decode_scores(cfg, q, mem_cache["k"]), dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", pr,
-                     mem_cache["v"].to(torch.float32)).to(x.dtype)
-    return _project_out(o, p["wo"])
+    prefill; mem_cache: dict(k, v) each (B, Sm, KV, hd), only read. One
+    ``attention.decode_cross`` span (`core.timing.span`)."""
+    with timing.span("attention.decode_cross"):
+        q = _project("bsd,dkgh->bskgh", x, p["wq"])
+        if spmd.is_dtensor(mem_cache["k"]):
+            kp = spmd.like(torch.arange(mem_cache["k"].shape[1], device=x.device), x)
+            o = _decode_attention_sharded(q, mem_cache, kp,
+                                          lambda q, k, kp: _decode_scores(cfg, q, k))
+            return _project_out(o.to(x.dtype), p["wo"])
+        pr = torch.softmax(_decode_scores(cfg, q, mem_cache["k"]), dim=-1)
+        o = torch.einsum("bkgqs,bskh->bqkgh", pr,
+                         mem_cache["v"].to(torch.float32)).to(x.dtype)
+        return _project_out(o, p["wo"])
 
 
 def precompute_cross_cache(cfg: ModelConfig, p: dict, memory):

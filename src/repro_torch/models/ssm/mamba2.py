@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import spmd
+from repro_torch.core import timing
 from repro_torch.models.common import ModelConfig, ParamMeta
 from repro_torch.models.layers import rms_norm
 
@@ -160,7 +161,8 @@ def mamba2_apply(cfg: ModelConfig, p: dict, x, chunk: int | None = None,
     decode-ready cache {ssm, conv_x, conv_bc}) when want_state."""
     Lc = chunk_len(x.shape[1], chunk or cfg.ssm_chunk)
     z, xh, Bm, Cm, dt, A, conv_states = _inputs(cfg, p, x)
-    y, S_fin = _ssd_chunked(xh, Bm, Cm, dt, A, p["d_skip"], Lc, x.dtype)
+    with timing.span("mamba2.ssd_chunked"):
+        y, S_fin = _ssd_chunked(xh, Bm, Cm, dt, A, p["d_skip"], Lc, x.dtype)
     out = _finish(cfg, p, y, z)
     if want_state:
         return out, {"ssm": S_fin, "conv_x": conv_states["x"], "conv_bc": conv_states["bc"]}
@@ -223,7 +225,8 @@ def mamba2_decode(cfg: ModelConfig, p: dict, x, cache):
     Returns (out, new cache); the cache given is not written."""
     z, xh, Bm, Cm, dt, A, new_conv = _inputs(
         cfg, p, x, conv_states={"x": cache["conv_x"], "bc": cache["conv_bc"]})
-    y, S_new = _ssd_step(cache["ssm"], xh[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0], A,
-                         p["d_skip"])
+    with timing.span("mamba2.ssd_step"):
+        y, S_new = _ssd_step(cache["ssm"], xh[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0], A,
+                             p["d_skip"])
     out = _finish(cfg, p, y[:, None].to(x.dtype), z)
     return out, {"ssm": S_new, "conv_x": new_conv["x"], "conv_bc": new_conv["bc"]}

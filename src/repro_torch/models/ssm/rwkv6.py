@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import spmd
+from repro_torch.core import timing
 from repro_torch.models.common import ModelConfig, ParamMeta
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.ssm.mamba2 import chunk_len
@@ -163,8 +164,9 @@ def rwkv6_time_mix(cfg: ModelConfig, p: dict, x, chunk: int = 64, want_state: bo
     state) when want_state. The chunk length is ``chunk`` (64 by
     default, as in the JAX package), not ``cfg.ssm_chunk``."""
     r, k, v, g, w, u = _time_mix_inputs(cfg, p, x)
-    f32 = torch.float32
-    y, S_fin = _wkv_chunked(r.to(f32), k.to(f32), v.to(f32), w, u, chunk)
+    r, k, v = (a.to(torch.float32) for a in (r, k, v))
+    with timing.span("rwkv6.wkv_chunked"):
+        y, S_fin = _wkv_chunked(r, k, v, w, u, chunk)
     out = _finish(cfg, p, y.to(x.dtype), g)
     return (out, S_fin) if want_state else out
 
@@ -224,6 +226,7 @@ def rwkv6_decode(cfg: ModelConfig, p: dict, x, cache):
     Returns (out, new cache); the cache given is not written."""
     r, k, v, g, w, u = _time_mix_inputs(cfg, p["tm"], x, last=cache["tm_last"])
     rt, kt, vt, wt = (a[:, 0].to(torch.float32) for a in (r, k, v, w))
-    y, S_new = _wkv_step(rt, kt, vt, wt, u, cache["wkv"])
+    with timing.span("rwkv6.wkv_step"):
+        y, S_new = _wkv_step(rt, kt, vt, wt, u, cache["wkv"])
     out = _finish(cfg, p["tm"], y[:, None].to(x.dtype), g)
     return out, dict(cache, wkv=S_new, tm_last=x[:, 0])

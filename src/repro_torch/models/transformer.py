@@ -54,6 +54,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import spmd, tree
+from repro_torch.core import timing
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, ParamMeta, norm_meta, stack_group
@@ -284,18 +285,20 @@ def encode(cfg: ModelConfig, params: dict, frames):
     """Whisper-style encoder over stub frame embeddings (B, Sf, d): the
     ``attn_nc`` blocks, then the encoder's final norm. No positions are
     added to the frames: the blocks apply rope only when ``pos == "rope"``,
-    as the JAX package's do."""
-    enc = params["encoder"]
-    positions = _positions(frames.shape[0], frames.shape[1], frames)
-    x = frames.to(cfg.cdtype)
-    for layer in range(cfg.encoder_layers):
-        p = group_params(enc, layer)["b0"]
+    as the JAX package's do. One ``transformer.encode`` span
+    (`core.timing.span`)."""
+    with timing.span("transformer.encode"):
+        enc = params["encoder"]
+        positions = _positions(frames.shape[0], frames.shape[1], frames)
+        x = frames.to(cfg.cdtype)
+        for layer in range(cfg.encoder_layers):
+            p = group_params(enc, layer)["b0"]
 
-        def body(h, p=p):
-            return block_apply(cfg, "attn_nc", spmd.at_use(p, "encoder"), h,
-                               positions=positions)[0]
-        x = _remat(cfg, p, body, x)
-    return apply_norm(cfg, x, enc["final_norm"])
+            def body(h, p=p):
+                return block_apply(cfg, "attn_nc", spmd.at_use(p, "encoder"), h,
+                                   positions=positions)[0]
+            x = _remat(cfg, p, body, x)
+        return apply_norm(cfg, x, enc["final_norm"])
 
 
 def _memory(cfg: ModelConfig, params: dict, memory):
