@@ -166,10 +166,13 @@ its own:
    layers, d_model 2,560, 40 wkv heads of 64; 2,690,501,120 random bf16
    parameters), the same batch, prompts and decode steps: K3 32 launches
    per prefill and per decode step (``ln_x``; the block norms are
-   LayerNorm), K4 none; the hand-off as for Zamba2, the logits held
+   LayerNorm), K4 none, the wkv kernel 32 per prefill (one a layer) and
+   none in decode; the hand-off as for Zamba2, the logits held
    within ``HANDOFF_LOGITS_BOUND`` too; the weights freed; the shares of
    the analytic bound; K3 on the run's layer-0 ``ln_x`` input (2, 8000,
-   2560) (warp per row) and its last position (split row);
+   2560) (warp per row) and its last position (split row); the wkv
+   kernel on the run's layer-0 scan inputs (2, 8000, 40, 64) within
+   ``WKV_TOL`` of the chunk loop, timed beside its bound and the loop;
 11. the encoder-decoder serving path: Whisper large-v3 at full size (32
    encoder and 32 decoder layers, d_model 1,280, 20 heads of 64, LayerNorm,
    sinusoidal positions, the plain-gelu MLP; 1,534,602,240 random bf16
@@ -303,6 +306,8 @@ from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
 from repro_torch.kernels.topk_mask import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.topk_mask import ref as topk_ref  # noqa: E402
+from repro_torch.kernels.wkv6 import ops as wkv6_ops  # noqa: E402
+from repro_torch.kernels.wkv6 import ref as wkv6_ref  # noqa: E402
 from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16, MeshShape,  # noqa: E402
                                      make_local_mesh)
 from repro_torch.launch.serve import (ENCDEC_BATCH, ENCDEC_DECODE,  # noqa: E402
@@ -1687,6 +1692,12 @@ def expected_launches(cfg) -> tuple[int, int, int]:
     return k3 + encoder_k3, k3, k4 + cfg.encoder_layers
 
 
+def expected_wkv_launches(cfg) -> int:
+    """wkv kernel launches per prefill: one a ``rwkv`` block (a decode
+    step runs the recurrence in plain torch and launches none)."""
+    return sum(kind == "rwkv" for kind in cfg.pattern) * cfg.num_groups
+
+
 def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     """One LLM at full width (and depth, unless its config says a cut):
     random bf16 weights drawn on the card (``path_inputs(dev)``), a batch of
@@ -1697,7 +1708,9 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     whose times and launch counts are kept: K3 and K4 are counted from 0
     just before it and read just after, and must equal
     `expected_launches` (Gemma-2: K3 169 per prefill and per decode step,
-    K4 42 per prefill), all K4 launches on its bf16 route."""
+    K4 42 per prefill), all K4 launches on its bf16 route; the wkv
+    kernel's launches must equal `expected_wkv_launches` (RWKV6-3B: 32,
+    one a layer; 0 elsewhere)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1733,10 +1746,12 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     cold = serve(cfg, params, prompt, n_decode, dev, memory=memory)
     check(cold["finite"], f"{label}: every logit of the cold run finite")
     norm_ops.launches = 0
+    wkv6_ops.launches = 0
     attn_ops.reset_launches()
     r = serve(cfg, params, prompt, n_decode, dev, memory=memory)
     launches = {"rms_norm": norm_ops.launches, "flash_attention": attn_ops.launches,
-                "flash_attention_by_route": dict(attn_ops.launches_by_route)}
+                "flash_attention_by_route": dict(attn_ops.launches_by_route),
+                "wkv6": wkv6_ops.launches}
     peak = torch.cuda.max_memory_allocated()
     capacity = torch.cuda.get_device_properties(dev).total_memory
     toks = r["tokens"]
@@ -1747,7 +1762,7 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
           f"{capacity:,}); all logits finite: {r['finite']}")
     print(f"{label} launches: prefill {r['launches']['prefill']}, decode "
           f"{r['launches']['decode']} over {n_decode} steps; total {launches} "
-          f"(K4 by route: {launches['flash_attention_by_route']})")
+          f"(K4 by route: {launches['flash_attention_by_route']}; wkv {launches['wkv6']})")
     print(f"{label} first 16 generated tokens of row 0: {toks[0, :16].tolist()}")
     n_norms, n_decode_norms, n_attn = expected_launches(cfg)
     check(peak < capacity, f"{label}: peak memory under the card's")
@@ -1768,6 +1783,8 @@ def llm_path(dev, path_inputs, n_decode: int, label: str = "LLM"):
     check(launches["flash_attention_by_route"] == {"bf16_wgmma": n_attn,
                                                    "f32_cuda_cores": 0},
           f"{label}: K4 routes {launches['flash_attention_by_route']}")
+    check(launches["wkv6"] == expected_wkv_launches(cfg),
+          f"{label}: wkv launches {launches['wkv6']}, expected {expected_wkv_launches(cfg)}")
     mem = dict(label=label, cfg=cfg, base=base, peak=peak,
                params=sum(l.numel() * l.element_size() for l in tree.leaves(params)),
                shape=dict(kind="prefill", seq_len=prompt_len, global_batch=batch,
@@ -2298,15 +2315,50 @@ def hybrid_layer_inputs(cfg, params, prompt, memory=None):
 
 
 def recurrent_layer_inputs(cfg, params, prompt, memory=None):
-    """The recurrent run's own data for K3: layer 0's ln_x input (B, S,
-    d_model), from its time-mix over the LayerNorm of the embeddings."""
+    """The recurrent run's own data for K3 and the wkv kernel: layer 0's
+    ln_x input (B, S, d_model), from its time-mix over the LayerNorm of
+    the embeddings, and that time-mix's scan inputs r, k, v, log w
+    (float32, (B, S, H, P)) and u (H, P), as `rwkv6_time_mix` hands them
+    to `rwkv6._wkv_chunked`."""
     B, S = prompt.shape
     positions = torch.arange(S, device=prompt.device).expand(B, S)
     x = embed_apply(cfg, params["embed"], prompt, positions)
     b0 = tfm.group_params(params, 0)["b0"]
     h = apply_norm(cfg, x, b0["ln1"])
     x, w = first_norm_input(rwkv6, lambda: rwkv6.rwkv6_time_mix(cfg, b0["rwkv"]["tm"], h))
-    return dict(norm_in=(x, w.clone()))
+    r, k, v, _, logw, u = rwkv6._time_mix_inputs(cfg, b0["rwkv"]["tm"], h)
+    wkv_in = tuple(a.to(torch.float32) for a in (r, k, v)) + (logw, u.to(torch.float32))
+    return dict(norm_in=(x, w.clone()), wkv_in=wkv_in)
+
+
+WKV_TOL = 5e-5  # relative norm, kernel against the chunk loop (tests/test_torch_wkv6_cuda.py)
+
+
+def wkv6_phase(dev, label, wkv_in, bw) -> dict:
+    """The wkv kernel on a run's own layer-0 scan inputs (RWKV6-3B's
+    prefill, (2, 8000, 40, 64)): y and the final state within `WKV_TOL`
+    of the plain chunk loop run on the card, in relative norm; then the
+    kernel timed (`device_ms`) beside its bound (r, k, v and log w read
+    and y and the state written once, at the card's bandwidth) and the
+    plain loop."""
+    r, k, v, logw, u = wkv_in
+    n0 = wkv6_ops.launches
+    y, st = wkv6_ops.wkv6(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    check(wkv6_ops.launches == n0 + 1, f"{label}: one wkv launch a call")
+    y_ref, st_ref = wkv6_ref.wkv6_ref(r, k, v, logw, u, 64)
+    err = {"y": rel_norm(y, y_ref), "state": rel_norm(st, st_ref)}
+    check(all(e < WKV_TOL for e in err.values()),
+          f"{label}: wkv kernel within {WKV_TOL} of the chunk loop: {err}")
+    nbytes = (5 * r.numel() + st.numel()) * 4
+    out = dict(shape=list(r.shape), err=err,
+               ms=device_ms(lambda: wkv6_ops.wkv6(r, k, v, logw, u)),
+               plain_ms=device_ms(lambda: wkv6_ref.wkv6_ref(r, k, v, logw, u, 64), n=3, reps=3),
+               bound_ms=1e3 * nbytes / bw, bound_bytes=nbytes)
+    print(f"{label} wkv kernel on the run's layer-0 scan inputs {tuple(r.shape)}: within "
+          f"{WKV_TOL} of the chunk loop (y {err['y']:.3e}, state {err['state']:.3e}); "
+          f"{out['ms']:.4f} ms (bound {out['bound_ms']:.4f}, plain loop {out['plain_ms']:.2f})")
+    return out
 
 
 def encdec_layer_inputs(cfg, params, prompt, memory):
@@ -3329,6 +3381,7 @@ def main() -> None:
                                  RECURRENT_DECODE, "Recurrent")
     rk3 = k3_run_phase(dev, "Recurrent", rec.pop("norm_in"), ("warp_per_row", "split_row"), bw,
                        17, what="RWKV6 ln_x input")
+    rwkv = wkv6_phase(dev, "Recurrent", rec.pop("wkv_in"), bw)
     torch.cuda.empty_cache()
     rec_s = time.perf_counter() - t_rec
 
@@ -3531,6 +3584,16 @@ def main() -> None:
              library_ms=k3b["library_ms"],
              library_call="torch.autograd.grad through torch.nn.functional.rms_norm",
              shape=k3b["shape"], against_float64=k3b["checks"], variant=k3b["variant"]),
+        dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+             replaces="src/repro/models/ssm/rwkv6.py:102",
+             replaces_what="no pallas_call: the JAX package's wkv scan, a lax.scan of jnp "
+                           "over chunks, which the port ran as a Python loop on the card",
+             launches=rec["launches"]["wkv6"],
+             launches_per_prefill=expected_wkv_launches(rec["cfg"]),
+             max_rel_err=max(rwkv["err"].values()),
+             max_rel_err_on="the run's layer-0 scan inputs, against the chunk loop on the card",
+             ms=rwkv["ms"], plain_ms=rwkv["plain_ms"], bound_ms=rwkv["bound_ms"],
+             bound_by="bytes", library_ms=None, shape=rwkv["shape"]),
     ]
     print(f"AMS summary: eager iteration busy share {trace['busy_share']:.3f} "
           f"({trace['launches']} launches, wall {trace['wall_ms']:.2f} ms); race at "
@@ -3563,7 +3626,9 @@ def main() -> None:
                                    f"{hk4['bound_ms']:.4f}); K3 at {tuple(hk3['shape'])} "
                                    f"{hk3['prefill']['ms']:.4f} ms"),
                                   ("Recurrent", rec, rec_s, f"; K3 at {tuple(rk3['shape'])} "
-                                   f"{rk3['prefill']['ms']:.4f} ms"),
+                                   f"{rk3['prefill']['ms']:.4f} ms; wkv at "
+                                   f"{tuple(rwkv['shape'])} {rwkv['ms']:.4f} ms (bound "
+                                   f"{rwkv['bound_ms']:.4f}, plain {rwkv['plain_ms']:.2f})"),
                                   ("EncDec", enc, enc_s, f"; K4 encoder at "
                                    f"{tuple(ek4['shape'])} {ek4['ms']:.4f} ms (SDPA "
                                    f"{ek4['library_ms']:.4f}, bound {ek4['bound_ms']:.4f}), "

@@ -8,12 +8,22 @@ on the token-shifted mix); the wkv state is a per-head (P x P) matrix:
     y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
 
 As in the JAX package, the token-shift coefficients are static learned
-vectors. The full-sequence path walks time chunks (a Python loop where
-the JAX package has `lax.scan`): within a chunk the in-chunk keys
-contribute through causal decay products, the carried state through one
-matrix product. The decay is per channel, so a chunk's decay products
-are (B, Lc, Lc, H, P), as in the JAX package. `rwkv6_time_mix_ref` is
-the per-step oracle.
+vectors. The full-sequence scan (`_wkv_chunked`) is a kernel on the
+card and the plain version on the CPU. The kernel (`csrc/wkv6.cu`,
+wrapper `kernels/wkv6/ops.py`, counter ``launches``) replaces no Pallas
+kernel: it was added for the plain scan's launches and bytes (~30
+kernels and an 84 MB float32 decay tensor for each of 125 chunks a layer
+at 8,000 tokens). Its bound at RWKV6-3B's prefill (2, 8000, 40, 64) is
+its 820 MB read and written once, 0.245 ms a layer at 3.35 TB/s; it
+steps the tokens in order with the state held in registers, a block per
+(row, head, slice of value columns) so that the 80 (row, head) pairs
+fill the SMs, and stages r, k, log w and v through shared memory a few
+tokens ahead. The plain version (`kernels/wkv6/ref.py`) walks time
+chunks, as the JAX package's `lax.scan` does: within a chunk the
+in-chunk keys contribute through causal decay products, the carried
+state through one matrix product; the decay is per channel, so a chunk's
+decay products are (B, Lc, Lc, H, P), as in the JAX package.
+`rwkv6_time_mix_ref` is the per-step oracle.
 
 The decay LoRA and the wkv products are float32; `ln_x` is the RMSNorm
 kernel (K3) on the card, at d_model wide rows. The block norms around it
@@ -26,9 +36,9 @@ import torch.nn.functional as F
 
 from repro_torch import spmd
 from repro_torch.core import timing
+from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.models.common import ModelConfig, ParamMeta
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.ssm.mamba2 import chunk_len
 
 LORA_R = 32
 
@@ -101,55 +111,20 @@ def _time_mix_inputs(cfg, p, x, last=None):
 
 
 def _wkv_chunked(r, k, v, logw, u, chunk: int):
-    """Chunked wkv. r,k,v,logw: (B,S,H,P) float32; u: (H,P).
-    Returns y (B,S,H,P) float32 and the final state (B,H,P,P). On
-    DTensors the scan runs on local shards (`spmd.local`): it is local per
-    batch row and per head."""
+    """The wkv scan over the sequence. r,k,v,logw: (B,S,H,P) float32;
+    u: (H,P). Returns y (B,S,H,P) float32 and the final state (B,H,P,P).
+    A CUDA tensor launches the wkv kernel (`kernels.wkv6.ops.wkv6`, one
+    launch a call; ``chunk`` does not apply there); a CPU tensor takes
+    the plain version, the chunk loop at ``chunk`` (`kernels.wkv6.ref`).
+    On DTensors the scan runs on local shards (`spmd.local`): it is local
+    per batch row and per head."""
     if spmd.is_dtensor(r):
         keep = (0, 2)
         ops = [spmd.operand(r, keep)] * 4 + [spmd.operand(r, keep, {2: 0})]
         outs = (ops[0][0], spmd.operand(r, keep, {0: 0, 2: 1})[0])
         return spmd.local(lambda *a: _wkv_chunked(*a, chunk), outs,
                           [o[0] for o in ops], [o[1] for o in ops])(r, k, v, logw, u)
-    B, S, H, P = r.shape
-    Lc = chunk_len(S, chunk)
-    u = u.to(torch.float32)
-    strict = torch.ones((Lc, Lc), dtype=torch.bool, device=r.device).tril(-1)
-    above = ~strict[None, :, :, None, None]
-    y = torch.empty_like(r)
-    S_prev = torch.zeros((B, H, P, P), dtype=torch.float32, device=r.device)
-    records = torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, logw))
-    for c0 in range(0, S, Lc):
-        sl = slice(c0, c0 + Lc)
-        ri, ki, vi, wi = r[:, sl], k[:, sl], v[:, sl], logw[:, sl]  # (B,Lc,H,P)
-        cum_w = torch.cumsum(wi, dim=1)  # inclusive log decay
-        # intra: y_i += sum_{j<i} r_i * exp(cum_w_{i-1} - cum_w_j) k_j * v_j
-        #        + r_i * diag(u) k_i v_i  (bonus, j == i)
-        # dec (B,i,j,H,P): exp overflows to inf on and above the diagonal,
-        # where it is replaced by 0. In place, except where autograd
-        # records: exp's backward reads its output, which the in-place
-        # mask and products would overwrite. There the exponent is masked
-        # to -inf first (the same values; a zero gradient, not 0 * inf).
-        seg = cum_w[:, :, None] - cum_w[:, None, :]
-        if records:
-            dec = torch.exp((seg - wi[:, :, None]).masked_fill(above, -torch.inf))
-            att = (dec * ri[:, :, None] * ki[:, None]).sum(-1)  # (B,i,j,H)
-        else:
-            dec = seg.sub_(wi[:, :, None]).exp_()
-            dec.masked_fill_(above, 0.0)
-            att = dec.mul_(ri[:, :, None]).mul_(ki[:, None]).sum(-1)
-        del seg, dec
-        y_intra = torch.einsum("bijh,bjhp->bihp", att, vi)
-        bonus = (ri * u * ki).sum(-1)  # (B,Lc,H)
-        y_intra = y_intra + bonus[..., None] * vi
-        # inter: carried state, decayed from chunk start to i-1
-        y_inter = torch.einsum("bihp,bhpq->bihq", ri * torch.exp(cum_w - wi), S_prev)
-        # state update
-        decay_to_end = torch.exp(cum_w[:, -1:] - cum_w)
-        S_chunk = torch.einsum("bjhp,bjhq->bhpq", ki * decay_to_end, vi)
-        S_prev = S_prev * torch.exp(cum_w[:, -1])[..., None] + S_chunk
-        y[:, sl] = y_intra + y_inter
-    return y, S_prev
+    return wkv6_ops.wkv6(r, k, v, logw, u, chunk)
 
 
 def _finish(cfg, p, y, g):
